@@ -14,10 +14,10 @@ Where the JAX package compiles the loop as one ``lax.scan``, this is a
 Python loop of eager steps. It ends early once every row is done, which
 changes no output: the remaining slots are pad either way.
 
-The shared-prefix decode attention of the JAX package (one read of the
-common prompt for the whole fan-out) is not ported yet; decode reads
-each row's cache through the ungrouped kernel, which gives the same
-outputs.
+Under ``shared_prefill`` the decode loop reads the common prompt's K/V
+once per step for the whole fan-out (``shared_prefix_attention``, on by
+default as in the JAX package); off, each row reads its whole cache.
+Both give the same outputs.
 """
 
 from __future__ import annotations
@@ -59,6 +59,7 @@ def generate(
     cache_len: int | None = None,
     shared_prefill: bool = False,
     stop_ids: tuple[int, ...] = (),
+    shared_prefix_attention: bool = True,
 ) -> GenerateOutput:
     """Generate up to ``max_new_tokens`` for a batch of right-padded prompts.
 
@@ -67,6 +68,8 @@ def generate(
     once per decode step); temperature: [B] per-row (0 = greedy).
     ``shared_prefill``: every row holds the same prompt, so the prompt is
     prefilled once at B=1 and its cache copied to all B rows.
+    ``shared_prefix_attention``: under ``shared_prefill``, decode reads
+    the prompt's slots [0, lengths[0]) once per step for all rows.
     """
     b, s = tokens.shape
     if cache_len is None:
@@ -93,6 +96,9 @@ def generate(
         max_new_tokens=max_new_tokens,
         uniform_write=shared_prefill,
         stop_ids=stop_ids,
+        shared_prefix_len=(
+            int(lengths[0]) if shared_prefill and shared_prefix_attention else None
+        ),
     )
 
 
@@ -148,12 +154,15 @@ def _decode_loop(
     max_new_tokens: int,
     uniform_write: bool,
     stop_ids: tuple[int, ...] = (),
+    shared_prefix_len: int | None = None,
 ) -> GenerateOutput:
     """The decode loop, from first-token logits onward.
 
     ``stop_ids``: extra single-token terminators — a row that samples any
     of them finishes exactly as if it sampled EOS (the stop token is
-    still emitted and counted, like EOS).
+    still emitted and counted, like EOS). ``shared_prefix_len``: the
+    length of the cache prefix identical across rows, passed to every
+    decode step.
     """
     b = logits.shape[0]
     tok, lp_sum = sample_token(logits, generator, temperature, sampler)
@@ -166,7 +175,8 @@ def _decode_loop(
         if i % _DONE_CHECK_EVERY == 0 and bool(done.all()):
             break
         logits, cache = decode_step(
-            cfg, params, tok[:, None], cache, uniform_write=uniform_write
+            cfg, params, tok[:, None], cache, uniform_write=uniform_write,
+            shared_prefix_len=shared_prefix_len,
         )
         next_tok, lp = sample_token(logits, generator, temperature, sampler)
         next_tok = torch.where(done, pad_id, next_tok)

@@ -58,8 +58,16 @@ def _attn_causal(cfg: ModelConfig, q, k, v, positions):
     return causal_attention(q, k, v, positions)
 
 
-def _attn_decode(cfg: ModelConfig, q, k_cache, v_cache, valid_len):
+def _attn_decode(cfg: ModelConfig, q, k_cache, v_cache, valid_len, shared_prefix_len=None):
+    """``shared_prefix_len`` (int or None): every row's cache slots
+    [0, shared_prefix_len) hold the same K/V (the shared-prefill fan-out),
+    so the kernel reads that region once for the whole batch. Engages on
+    the kernel path only; the plain path reads every row (same outputs)."""
     if cfg.use_pallas:
+        if shared_prefix_len is not None:
+            return kernels.flash_decode_attention_shared_prefix(
+                q, k_cache, v_cache, valid_len, shared_prefix_len
+            )
         return kernels.flash_decode_attention(q, k_cache, v_cache, valid_len)
     return decode_attention(q, k_cache, v_cache, valid_len)
 
@@ -202,6 +210,7 @@ def _block(
     valid_len: torch.Tensor | None,
     positions: torch.Tensor | None,
     uniform_write: bool = False,
+    shared_prefix_len: int | None = None,
 ) -> torch.Tensor:
     """One transformer block; returns the new residual stream.
 
@@ -210,6 +219,7 @@ def _block(
     (slot ``valid_len[b]`` of each row). ``uniform_write``: every row
     writes at the same slot (the shared-prefill fan-out), so the decode
     write is one slice copy along the slot axis instead of a scatter.
+    ``shared_prefix_len`` (decode mode): see :func:`_attn_decode`.
     """
     h = _rms(cfg, x, p["attn_norm"])
     q, k, v = _project_qkv(cfg, p, h)
@@ -234,7 +244,7 @@ def _block(
             rows = torch.arange(x.shape[0], device=x.device)
             k_l[rows, valid_len.long()] = k[:, 0].to(k_l.dtype)
             v_l[rows, valid_len.long()] = v[:, 0].to(v_l.dtype)
-        attn = _attn_decode(cfg, q, k_l, v_l, valid_len + 1)
+        attn = _attn_decode(cfg, q, k_l, v_l, valid_len + 1, shared_prefix_len)
     else:  # pragma: no cover
         raise ValueError(mode)
 
@@ -254,6 +264,7 @@ def _run_layers(
     valid_len: torch.Tensor | None,
     positions: torch.Tensor | None,
     uniform_write: bool = False,
+    shared_prefix_len: int | None = None,
 ) -> torch.Tensor:
     blocks = params["blocks"]
     for layer in range(cfg.n_layers):
@@ -261,7 +272,7 @@ def _run_layers(
         kv_layer = None if cache is None else (cache.k[layer], cache.v[layer])
         x = _block(
             cfg, p, x, cos, sin, kv_layer, mode, valid_len, positions,
-            uniform_write=uniform_write,
+            uniform_write=uniform_write, shared_prefix_len=shared_prefix_len,
         )
     return x
 
@@ -343,12 +354,15 @@ def decode_step(
     tokens: torch.Tensor,
     cache: KVCache,
     uniform_write: bool = False,
+    shared_prefix_len: int | None = None,
 ) -> tuple[torch.Tensor, KVCache]:
     """One decode step: tokens [B, 1] -> (logits [B, V] float32, cache).
 
     The new token's k/v is written at slot ``cache.length`` (in place) and
     the returned cache's fill length is one more. ``uniform_write``: all
     rows share one fill length (shared-prefill fan-out).
+    ``shared_prefix_len``: rows hold identical K/V in cache slots
+    [0, shared_prefix_len), read once per step for the whole batch.
     """
     _check_supported(cfg)
     x = params["embed"][tokens]  # [B, 1, D]
@@ -358,7 +372,7 @@ def decode_step(
     )
     x = _run_layers(
         cfg, params, x, cos, sin, cache, "decode", cache.length, None,
-        uniform_write=uniform_write,
+        uniform_write=uniform_write, shared_prefix_len=shared_prefix_len,
     )
     logits = _unembed(cfg, params, x[:, 0])
     return logits, cache.advanced(1)

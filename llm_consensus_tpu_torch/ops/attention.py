@@ -1,7 +1,8 @@
 """Attention: causal prefill and single-step decode against a KV cache.
 
 The plain PyTorch versions of ``llm_consensus_tpu.ops.attention``'s
-``causal_attention`` and ``decode_attention``; the hand-written kernels
+``causal_attention``, ``decode_attention`` and
+``decode_attention_shared_prefix``; the hand-written kernels
 that replace them on the hot path are in
 :mod:`llm_consensus_tpu_torch.ops.kernels.attention`.
 
@@ -98,3 +99,66 @@ def decode_attention(
     mask = mask[:, None, None, None]  # [B, 1, 1, 1, max_len]
     scores = torch.where(mask, scores, _NEG_INF)
     return _gqa_out(_softmax(scores), v_cache, q.dtype)
+
+
+def merge_decode_partials(m1, l1, o1, m2, l2, o2) -> torch.Tensor:
+    """Exact log-sum-exp merge of two partial softmax-attention results.
+
+    Each partial is an (m, l, o) triple over a disjoint slot range: the
+    max score, the softmax denominator at that max, and the normalized
+    output. ``m = max(m1, m2); a_i = l_i * exp(m_i - m)``; the result is
+    ``(a1 * o1 + a2 * o2) / (a1 + a2)``. An empty partial (l = 0) gets
+    weight zero.
+    """
+    m = torch.maximum(m1, m2)
+    m_safe = torch.where(m <= _NEG_INF / 2, 0.0, m)
+    a1 = torch.where(l1 > 0, l1 * torch.exp(m1 - m_safe), 0.0)
+    a2 = torch.where(l2 > 0, l2 * torch.exp(m2 - m_safe), 0.0)
+    return (a1 * o1 + a2 * o2) / torch.clamp(a1 + a2, min=1e-30)
+
+
+def _partial_softmax(scores: torch.Tensor, v: torch.Tensor, mask: torch.Tensor):
+    """(m, l, o) over one masked slot range. scores: [B, Hkv, G, 1, S]
+    float32; v: [B, S, Hkv, D]. Returns m/l [B, Hkv, G, 1, 1] and o
+    [B, Hkv, G, 1, D] (zeros where the range is empty)."""
+    scores = torch.where(mask, scores, _NEG_INF)
+    m = scores.amax(dim=-1, keepdim=True)
+    m_safe = torch.where(m <= _NEG_INF / 2, 0.0, m)
+    p = torch.exp(scores - m_safe)
+    l = p.sum(dim=-1, keepdim=True)
+    acc = torch.einsum("bkgqs,bskd->bkgqd", p, v.float())
+    return m, l, acc / torch.clamp(l, min=1e-30)
+
+
+def decode_attention_shared_prefix(
+    q: torch.Tensor,
+    k_cache: torch.Tensor,
+    v_cache: torch.Tensor,
+    valid_len: torch.Tensor,
+    prefix_len: int,
+) -> torch.Tensor:
+    """Two-phase decode attention over a batch sharing one prompt prefix.
+
+    Every row's cache slots [0, prefix_len) hold identical K/V (the
+    self-consistency fan-out after a shared prefill). Phase 1 attends all
+    rows' queries to row 0's copy of the prefix; phase 2 attends each row
+    to its own slots [prefix_len, valid_len). The two partials merge
+    exactly (:func:`merge_decode_partials`), so the output equals
+    :func:`decode_attention` wherever the precondition holds.
+
+    q: [B, 1, H, D]; k_cache/v_cache: [B, max_len, Hkv, D]; valid_len:
+    [B]; prefix_len: the shared prompt length (0 gives the plain path).
+    """
+    scale = q.shape[-1] ** -0.5
+    b, _, h, _ = q.shape
+    slot = torch.arange(k_cache.shape[1], device=q.device)[None, :]
+    # Phase 1: all rows' queries against row 0's prefix.
+    scores1 = _gqa_scores(q, k_cache[:1].expand_as(k_cache)) * scale
+    mask1 = (slot < prefix_len)[:, None, None, None]
+    m1, l1, o1 = _partial_softmax(scores1, v_cache[:1].expand_as(v_cache), mask1)
+    # Phase 2: each row against its own suffix.
+    scores2 = _gqa_scores(q, k_cache) * scale
+    mask2 = ((slot >= prefix_len) & (slot < valid_len[:, None]))[:, None, None, None]
+    m2, l2, o2 = _partial_softmax(scores2, v_cache, mask2)
+    out = merge_decode_partials(m1, l1, o1, m2, l2, o2)  # [B, Hkv, G, 1, D]
+    return out.permute(0, 3, 1, 2, 4).reshape(b, 1, h, -1).to(q.dtype)

@@ -9,15 +9,23 @@ launches and nothing else.
 - K1 :func:`~.norms.fused_rms_norm` (``csrc/rms_norm.cu``)
 - K2 :func:`~.attention.flash_causal_attention` (``csrc/causal_attention.cu``)
 - K3 :func:`~.attention.flash_decode_attention` (``csrc/decode_attention.cu``)
+- K7 :func:`~.attention.flash_decode_attention_shared_prefix`
+  (``csrc/decode_attention.cu``)
 """
 
 from llm_consensus_tpu_torch.ops.kernels.attention import (
     flash_causal_attention,
     flash_decode_attention,
+    flash_decode_attention_shared_prefix,
 )
 from llm_consensus_tpu_torch.ops.kernels.norms import fused_rms_norm
 
-KERNELS = (fused_rms_norm, flash_causal_attention, flash_decode_attention)
+KERNELS = (
+    fused_rms_norm,
+    flash_causal_attention,
+    flash_decode_attention,
+    flash_decode_attention_shared_prefix,
+)
 
 
 def reset_launch_counts() -> None:
@@ -29,6 +37,7 @@ __all__ = [
     "KERNELS",
     "flash_causal_attention",
     "flash_decode_attention",
+    "flash_decode_attention_shared_prefix",
     "fused_rms_norm",
     "reset_launch_counts",
 ]

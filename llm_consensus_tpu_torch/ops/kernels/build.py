@@ -38,6 +38,8 @@ _SIGNATURES = {
     "lct_rms_norm": (_P, _P, _P, _I, _I, _F, _I, _P),
     "lct_causal_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _P),
     "lct_decode_attention": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P),
+    "lct_shared_prefix_attention": (
+        _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _P),
 }
 
 _lib: ctypes.CDLL | None = None

@@ -1,47 +1,86 @@
-// K3: one-token decode attention over the dense KV cache.
+// K3 and K7: one-token decode attention over the dense KV cache, plain and
+// with a prefix shared by every row.
 //
-// Replaces the Pallas kernel llm_consensus_tpu/ops/pallas/attention.py
+// K3 replaces the Pallas kernel llm_consensus_tpu/ops/pallas/attention.py
 // (flash_decode_attention -> _decode_kernel). Same semantics: query head h
 // reads KV head h // G (G = H / Hkv, as q.reshape(b, 1, hkv, g, d) there),
 // cache slots >= valid_len[b] are masked, softmax and the weighted sum of V
 // run in float32, output in q's type.
 //
-// What bounds it on the card: bytes. Every step reads each row's valid
-// K/V slots once (2 * valid_len * Hkv * D elements per row) and does
-// ~4 * G operations per element read, far below ~295 operations per byte.
+// K7 replaces flash_decode_attention_shared_prefix (dense cache, through
+// _ragged_attention there). Every row's slots [0, prefix_len) hold the same
+// K/V (the self-consistency fan-out after one shared prefill), so the
+// prefix is read once for all rows, each row reads only its own slots
+// [prefix_len, valid_len), and the partial softmaxes merge by log-sum-exp.
 //
-// Design. One block per (batch row, kv head); its 8 warps split the valid
-// slots round-robin, so only slots < valid_len[b] are read from device
-// memory. A warp reads one slot's K and V row per step (lane i holds
-// dimensions i, i + 32, ...: each load is one contiguous row segment) and
-// serves all G query heads of the KV head from that one read, keeping an
-// online-softmax state (max, sum, output slice) per head in registers.
-// The 8 warps' partial states are merged through shared memory by
-// log-sum-exp at the end. Splitting the cache over several blocks per row
-// (split-KV), which small batches need to fill the 132 SMs, is later work.
+// What bounds them on the card: bytes. K3 reads each row's valid K/V slots
+// (2 * valid_len * Hkv * D elements per row) and does ~4 * G operations per
+// element read, far below ~295 operations per byte. K7 reads the prefix
+// once instead of B times: 2 * (prefix + B * suffix) * Hkv * D elements,
+// with ~4 * B * G operations per prefix element, still bytes-bound while
+// B * G is below a few hundred.
+//
+// Design of the row kernel (K3, and K7's suffix-and-merge pass). One block
+// per (batch row, kv head); its 8 warps split the row's slots [lo,
+// valid_len) round-robin, so only those are read from device memory. A warp
+// reads one slot's K and V row per step (lane i holds dimensions i, i + 32,
+// ...: each load is one contiguous row segment) and serves all G query heads
+// of the KV head from that one read, keeping an online-softmax state (max,
+// sum, output slice) per head in registers; it loads its next slot while
+// working on the current one. The warps' partial states, and
+// for K7 the prefix partials, are merged by log-sum-exp at the end.
+//
+// Design of K7's prefix pass. One block per (kv head, tile of 16 queries,
+// 64-slot split of the prefix). The block stages row 0's prefix K/V for the
+// split in shared memory, 32 slots at a time (16-byte loads, the next
+// chunk in flight while the current one is used), and each warp runs 2 of
+// the tile's (row, head) queries over the staged slots: one lane per slot
+// for the scores, one softmax update per chunk, then the weighted sum of
+// V. The split's (max, sum, output) per query goes to a float32 workspace
+// that the row kernel merges. Split-KV for K3 (small batches on
+// 132 SMs) and tensor-core score tiles for K7's prefix are later work.
 
 #include "common.cuh"
 
 namespace {
 
 constexpr int kWarps = 8;
+constexpr int kSplit = 64;     // prefix slots per block of the prefix pass
+constexpr int kChunk = 32;     // prefix slots staged in shared memory at once
+constexpr int kQPerWarp = 2;   // queries per warp in the prefix pass
+constexpr int kQPerBlock = kWarps * kQPerWarp;
+
+struct RowArgs {
+  const void* q;
+  const void* k;
+  const void* v;
+  const int* valid_len;
+  void* out;
+  int b, s_max, hkv;
+  float scale;
+  int lo;  // first slot the row kernel reads (0, or K7's prefix length)
+  // K7's prefix partials, [n_split, B, H] and [n_split, B, H, D] float32;
+  // n_split = 0 for K3.
+  const float* pm;
+  const float* pl;
+  const float* pacc;
+  int n_split;
+};
 
 template <typename T, int D, int G>
-__global__ void __launch_bounds__(kWarps * 32)
-    decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                            const T* __restrict__ v,
-                            const int* __restrict__ valid_len,
-                            T* __restrict__ out, int s_max, int hkv,
-                            float scale) {
+__global__ void __launch_bounds__(kWarps * 32) decode_row_kernel(RowArgs a) {
   constexpr int kDPL = (D + 31) / 32;  // dims per lane
   __shared__ float sm_m[kWarps][G];
   __shared__ float sm_l[kWarps][G];
   __shared__ float sm_acc[kWarps][G][D];
 
-  const int b = blockIdx.y, kvh = blockIdx.x;
+  const T* __restrict__ q = static_cast<const T*>(a.q);
+  const T* __restrict__ k = static_cast<const T*>(a.k);
+  const T* __restrict__ v = static_cast<const T*>(a.v);
+  const int b = blockIdx.y, kvh = blockIdx.x, hkv = a.hkv;
   const int h = hkv * G;
   const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
-  const int n = min(max(valid_len[b], 0), s_max);
+  const int n = min(max(a.valid_len[b], 0), a.s_max);
 
   float qr[G][kDPL], acc[G][kDPL], m[G], l[G];
 #pragma unroll
@@ -50,22 +89,34 @@ __global__ void __launch_bounds__(kWarps * 32)
 #pragma unroll
     for (int e = 0; e < kDPL; ++e) {
       const int d = e * 32 + lane;
-      qr[g][e] = d < D ? lct_to_float(q[q_off + d]) * scale : 0.f;
+      qr[g][e] = d < D ? lct_to_float(q[q_off + d]) * a.scale : 0.f;
       acc[g][e] = 0.f;
     }
     m[g] = -INFINITY;
     l[g] = 0.f;
   }
 
-  for (int slot = warp; slot < n; slot += kWarps) {
-    const size_t off = (((size_t)b * s_max + slot) * hkv + kvh) * D;
-    float kr[kDPL], vr[kDPL];
+  // Each warp loads its next slot's K/V row before working on the
+  // current one, so a device-memory round trip overlaps the math.
+  T kn[kDPL], vn[kDPL];
+  auto load = [&](int slot) {
+    const size_t off = (((size_t)b * a.s_max + slot) * hkv + kvh) * D;
 #pragma unroll
     for (int e = 0; e < kDPL; ++e) {
       const int d = e * 32 + lane;
-      kr[e] = d < D ? lct_to_float(k[off + d]) : 0.f;
-      vr[e] = d < D ? lct_to_float(v[off + d]) : 0.f;
+      kn[e] = d < D ? k[off + d] : lct_from_float<T>(0.f);
+      vn[e] = d < D ? v[off + d] : lct_from_float<T>(0.f);
     }
+  };
+  if (a.lo + warp < n) load(a.lo + warp);
+  for (int slot = a.lo + warp; slot < n; slot += kWarps) {
+    float kr[kDPL], vr[kDPL];
+#pragma unroll
+    for (int e = 0; e < kDPL; ++e) {
+      kr[e] = lct_to_float(kn[e]);
+      vr[e] = lct_to_float(vn[e]);
+    }
+    if (slot + kWarps < n) load(slot + kWarps);
 #pragma unroll
     for (int g = 0; g < G; ++g) {
       float sc = 0.f;
@@ -96,84 +147,306 @@ __global__ void __launch_bounds__(kWarps * 32)
   }
   __syncthreads();
 
+  // Merge the warps' partials and the prefix splits' (normalized) ones.
+  // An empty partial (a warp that saw no slot) has m = -inf and is skipped.
+  const size_t bh = (size_t)a.b * h;
   for (int idx = threadIdx.x; idx < G * D; idx += kWarps * 32) {
     const int g = idx / D, d = idx % D;
+    const size_t row_head = (size_t)b * h + kvh * G + g;
     float mx = -INFINITY;
     for (int w = 0; w < kWarps; ++w) mx = fmaxf(mx, sm_m[w][g]);
+    for (int sp = 0; sp < a.n_split; ++sp) mx = fmaxf(mx, a.pm[sp * bh + row_head]);
     float tot_l = 0.f, tot_acc = 0.f;
     if (mx != -INFINITY) {
       for (int w = 0; w < kWarps; ++w) {
-        if (sm_m[w][g] == -INFINITY) continue;  // a warp that saw no slot
-        const float a = expf(sm_m[w][g] - mx);
-        tot_l += sm_l[w][g] * a;
-        tot_acc += sm_acc[w][g][d] * a;
+        if (sm_m[w][g] == -INFINITY) continue;
+        const float c = expf(sm_m[w][g] - mx);
+        tot_l += sm_l[w][g] * c;
+        tot_acc += sm_acc[w][g][d] * c;
+      }
+      for (int sp = 0; sp < a.n_split; ++sp) {
+        const float pm = a.pm[sp * bh + row_head];
+        if (pm == -INFINITY) continue;
+        const float wl = a.pl[sp * bh + row_head] * expf(pm - mx);
+        tot_l += wl;
+        tot_acc += wl * a.pacc[(sp * bh + row_head) * D + d];
       }
     }
     const float o = tot_l > 0.f ? tot_acc / tot_l : 0.f;
-    out[((size_t)b * h + kvh * G + g) * D + d] = lct_from_float<T>(o);
+    static_cast<T*>(a.out)[row_head * D + d] = lct_from_float<T>(o);
   }
 }
 
-template <typename T, int D, int G>
-void launch(const void* q, const void* k, const void* v, const int* valid_len,
-            void* out, int b, int s_max, int hkv, float scale,
-            cudaStream_t stream) {
-  dim3 grid(hkv, b);
-  decode_attention_kernel<T, D, G><<<grid, kWarps * 32, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), valid_len, static_cast<T*>(out), s_max, hkv,
-      scale);
+// The 16 bytes of a staged vector as floats (4 float32 or 8 bfloat16).
+template <typename T>
+__device__ __forceinline__ void unpack16(const uint4& r, float* f);
+template <>
+__device__ __forceinline__ void unpack16<float>(const uint4& r, float* f) {
+  f[0] = __uint_as_float(r.x);
+  f[1] = __uint_as_float(r.y);
+  f[2] = __uint_as_float(r.z);
+  f[3] = __uint_as_float(r.w);
+}
+template <>
+__device__ __forceinline__ void unpack16<__nv_bfloat16>(const uint4& r,
+                                                        float* f) {
+  const __nv_bfloat162* p = reinterpret_cast<const __nv_bfloat162*>(&r);
+#pragma unroll
+  for (int u = 0; u < 4; ++u) {
+    const float2 t = __bfloat1622float2(p[u]);
+    f[2 * u] = t.x;
+    f[2 * u + 1] = t.y;
+  }
+}
+
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int off = 16; off > 0; off /= 2) {
+    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
+  }
+  return v;
+}
+
+// K7's prefix pass. Grid (hkv, ceil(B * G / kQPerBlock), n_split). Query j
+// of kv head kvh is (row j / G, head kvh * G + j % G). Writes each query's
+// (max, sum, normalized output) over this split's prefix slots.
+//
+// Per staged chunk of 32 slots, lane s of a warp scores slot s for the
+// warp's queries (its K row against the query held in shared memory), so
+// the chunk needs one max reduction and one exp per lane instead of one
+// online-softmax update per slot; the probabilities are then broadcast by
+// shuffle for the weighted sum of V, where lane i holds dimensions i, i +
+// 32, ...
+template <typename T, int D>
+__global__ void __launch_bounds__(kWarps * 32)
+    prefix_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                  const T* __restrict__ v, float* __restrict__ pm,
+                  float* __restrict__ pl, float* __restrict__ pacc, int b_rows,
+                  int hkv, int g_size, int prefix_len, float scale) {
+  constexpr int kDPL = (D + 31) / 32;
+  // A slot's K (or V) row of one kv head is D * sizeof(T) contiguous
+  // bytes, moved as 16-byte vectors. K rows are padded by one vector so
+  // that 32 lanes reading 32 rows hit distinct banks.
+  constexpr int kElemPerVec = 16 / (int)sizeof(T);
+  constexpr int kVecPerRow = D / kElemPerVec;
+  constexpr int kVecPerThread =
+      (kChunk * kVecPerRow + kWarps * 32 - 1) / (kWarps * 32);
+  __shared__ __align__(16) T sk[kChunk][D + kElemPerVec];
+  __shared__ __align__(16) T sv[kChunk][D];
+  __shared__ __align__(16) float sq[kWarps][kQPerWarp][D];
+
+  const int kvh = blockIdx.x, split = blockIdx.z;
+  const int h = hkv * g_size, nq = b_rows * g_size;
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int lo = split * kSplit, hi = min(prefix_len, lo + kSplit);
+  const int j0 = blockIdx.y * kQPerBlock + warp * kQPerWarp;
+
+  // m: running max; l: this lane's share of the running sum (summed over
+  // the warp at the end); acc: the output dimensions this lane holds.
+  float acc[kQPerWarp][kDPL], m[kQPerWarp], l[kQPerWarp];
+#pragma unroll
+  for (int i = 0; i < kQPerWarp; ++i) {
+    const int j = j0 + i;
+    const size_t q_off =
+        ((size_t)(j / g_size) * h + kvh * g_size + j % g_size) * D;
+    for (int d = lane; d < D; d += 32) {
+      sq[warp][i][d] = j < nq ? lct_to_float(q[q_off + d]) * scale : 0.f;
+    }
+#pragma unroll
+    for (int e = 0; e < kDPL; ++e) acc[i][e] = 0.f;
+    m[i] = -INFINITY;
+    l[i] = 0.f;
+  }
+  __syncwarp();  // each warp reads only its own queries
+
+  // The next chunk is loaded into registers (every load issued before any
+  // is used) while the current one is worked on from shared memory.
+  uint4 kbuf[kVecPerThread], vbuf[kVecPerThread];
+  auto load = [&](int c0) {
+#pragma unroll
+    for (int r = 0; r < kVecPerThread; ++r) {
+      const int idx = threadIdx.x + r * kWarps * 32;
+      const int s = idx / kVecPerRow, c = idx % kVecPerRow;
+      if (s < kChunk && c0 + s < hi) {
+        const size_t off = ((size_t)(c0 + s) * hkv + kvh) * D;  // row 0
+        kbuf[r] = reinterpret_cast<const uint4*>(k + off)[c];
+        vbuf[r] = reinterpret_cast<const uint4*>(v + off)[c];
+      }
+    }
+  };
+  if (lo < hi) load(lo);
+  for (int c0 = lo; c0 < hi; c0 += kChunk) {
+    const int nc = min(kChunk, hi - c0);
+    __syncthreads();  // the previous chunk is no longer read
+#pragma unroll
+    for (int r = 0; r < kVecPerThread; ++r) {
+      const int idx = threadIdx.x + r * kWarps * 32;
+      const int s = idx / kVecPerRow, c = idx % kVecPerRow;
+      if (s < nc) {
+        reinterpret_cast<uint4*>(sk[s])[c] = kbuf[r];
+        reinterpret_cast<uint4*>(sv[s])[c] = vbuf[r];
+      }
+    }
+    __syncthreads();
+    if (c0 + kChunk < hi) load(c0 + kChunk);
+    if (j0 >= nq) continue;  // this warp has no query (it still syncs)
+
+    float sc[kQPerWarp];
+#pragma unroll
+    for (int i = 0; i < kQPerWarp; ++i) sc[i] = 0.f;
+    if (lane < nc) {
+      const uint4* krow = reinterpret_cast<const uint4*>(sk[lane]);
+#pragma unroll 4
+      for (int c = 0; c < kVecPerRow; ++c) {
+        float kf[kElemPerVec];
+        unpack16<T>(krow[c], kf);
+#pragma unroll
+        for (int i = 0; i < kQPerWarp; ++i) {
+          const float4* qv =
+              reinterpret_cast<const float4*>(&sq[warp][i][c * kElemPerVec]);
+#pragma unroll
+          for (int u = 0; u < kElemPerVec / 4; ++u) {
+            const float4 qq = qv[u];
+            sc[i] += qq.x * kf[4 * u] + qq.y * kf[4 * u + 1] +
+                     qq.z * kf[4 * u + 2] + qq.w * kf[4 * u + 3];
+          }
+        }
+      }
+    }
+    float p[kQPerWarp];
+#pragma unroll
+    for (int i = 0; i < kQPerWarp; ++i) {
+      const float s_lane = lane < nc ? sc[i] : -INFINITY;
+      const float m_new = fmaxf(m[i], warp_max(s_lane));  // lane 0 is valid
+      const float alpha = (m[i] == -INFINITY) ? 0.f : expf(m[i] - m_new);
+      p[i] = lane < nc ? expf(s_lane - m_new) : 0.f;
+      l[i] = l[i] * alpha + p[i];
+#pragma unroll
+      for (int e = 0; e < kDPL; ++e) acc[i][e] *= alpha;
+      m[i] = m_new;
+    }
+    for (int s = 0; s < nc; ++s) {
+      float vr[kDPL];
+#pragma unroll
+      for (int e = 0; e < kDPL; ++e) {
+        const int d = e * 32 + lane;
+        vr[e] = d < D ? lct_to_float(sv[s][d]) : 0.f;
+      }
+#pragma unroll
+      for (int i = 0; i < kQPerWarp; ++i) {
+        const float ps = __shfl_sync(0xffffffffu, p[i], s);
+#pragma unroll
+        for (int e = 0; e < kDPL; ++e) acc[i][e] += ps * vr[e];
+      }
+    }
+  }
+
+  const size_t bh = (size_t)b_rows * h;
+#pragma unroll
+  for (int i = 0; i < kQPerWarp; ++i) {
+    const int j = j0 + i;
+    const float l_tot = lct_group_sum<32>(l[i]);  // every lane takes part
+    if (j >= nq) continue;
+    const size_t idx = split * bh + (size_t)(j / g_size) * h + kvh * g_size +
+                       j % g_size;
+    if (lane == 0) {
+      pm[idx] = m[i];
+      pl[idx] = l_tot;
+    }
+    const float inv = l_tot > 0.f ? 1.f / l_tot : 0.f;
+#pragma unroll
+    for (int e = 0; e < kDPL; ++e) {
+      const int d = e * 32 + lane;
+      if (d < D) pacc[idx * D + d] = acc[i][e] * inv;
+    }
+  }
 }
 
 template <typename T, int D>
-int dispatch_g(const void* q, const void* k, const void* v, const int* vl,
-               void* out, int b, int s_max, int hkv, int g, float scale,
-               cudaStream_t st) {
+int launch_rows(const RowArgs& a, int g, cudaStream_t st) {
+  dim3 grid(a.hkv, a.b);
   switch (g) {
-    case 1: launch<T, D, 1>(q, k, v, vl, out, b, s_max, hkv, scale, st); break;
-    case 2: launch<T, D, 2>(q, k, v, vl, out, b, s_max, hkv, scale, st); break;
-    case 4: launch<T, D, 4>(q, k, v, vl, out, b, s_max, hkv, scale, st); break;
-    case 8: launch<T, D, 8>(q, k, v, vl, out, b, s_max, hkv, scale, st); break;
+    case 1: decode_row_kernel<T, D, 1><<<grid, kWarps * 32, 0, st>>>(a); break;
+    case 2: decode_row_kernel<T, D, 2><<<grid, kWarps * 32, 0, st>>>(a); break;
+    case 4: decode_row_kernel<T, D, 4><<<grid, kWarps * 32, 0, st>>>(a); break;
+    case 8: decode_row_kernel<T, D, 8><<<grid, kWarps * 32, 0, st>>>(a); break;
     default: return (int)cudaErrorInvalidValue;
   }
   return 0;
 }
 
+template <typename T, int D>
+int launch_d(const RowArgs& a, int g, int prefix_len, float* ws,
+             cudaStream_t st) {
+  if (a.n_split > 0) {
+    const size_t bh = (size_t)a.b * a.hkv * g;
+    dim3 grid(a.hkv, (a.b * g + kQPerBlock - 1) / kQPerBlock, a.n_split);
+    prefix_kernel<T, D><<<grid, kWarps * 32, 0, st>>>(
+        static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+        static_cast<const T*>(a.v), ws, ws + a.n_split * bh,
+        ws + 2 * a.n_split * bh, a.b, a.hkv, g, prefix_len, a.scale);
+  }
+  return launch_rows<T, D>(a, g, st);
+}
+
 template <typename T>
-int dispatch_d(const void* q, const void* k, const void* v, const int* vl,
-               void* out, int b, int s_max, int hkv, int g, int d,
-               float scale, cudaStream_t st) {
+int dispatch_d(const RowArgs& a, int g, int d, int prefix_len, float* ws,
+               cudaStream_t st) {
   switch (d) {
-    case 16: return dispatch_g<T, 16>(q, k, v, vl, out, b, s_max, hkv, g, scale, st);
-    case 32: return dispatch_g<T, 32>(q, k, v, vl, out, b, s_max, hkv, g, scale, st);
-    case 64: return dispatch_g<T, 64>(q, k, v, vl, out, b, s_max, hkv, g, scale, st);
-    case 128: return dispatch_g<T, 128>(q, k, v, vl, out, b, s_max, hkv, g, scale, st);
+    case 16: return launch_d<T, 16>(a, g, prefix_len, ws, st);
+    case 32: return launch_d<T, 32>(a, g, prefix_len, ws, st);
+    case 64: return launch_d<T, 64>(a, g, prefix_len, ws, st);
+    case 128: return launch_d<T, 128>(a, g, prefix_len, ws, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
-}  // namespace
-
-// q: [B, 1, H, D]; k, v: [B, S_max, Hkv, D]; valid_len: [B] int32 on the
-// card; out: [B, 1, H, D]; all contiguous. H = Hkv * G.
-extern "C" int lct_decode_attention(const void* q, const void* k,
-                                    const void* v, const void* valid_len,
-                                    void* out, int b, int s_max, int h,
-                                    int hkv, int d, float scale, int dtype,
-                                    void* stream) {
-  if (b <= 0) return 0;
+int run(RowArgs a, int h, int d, int dtype, int prefix_len, float* ws,
+        void* stream) {
+  if (a.b <= 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int* vl = static_cast<const int*>(valid_len);
-  const int g = h / hkv;
+  const int g = h / a.hkv;
   int rc;
   if (dtype == LCT_DTYPE_F32) {
-    rc = dispatch_d<float>(q, k, v, vl, out, b, s_max, hkv, g, d, scale, st);
+    rc = dispatch_d<float>(a, g, d, prefix_len, ws, st);
   } else if (dtype == LCT_DTYPE_BF16) {
-    rc = dispatch_d<__nv_bfloat16>(q, k, v, vl, out, b, s_max, hkv, g, d,
-                                   scale, st);
+    rc = dispatch_d<__nv_bfloat16>(a, g, d, prefix_len, ws, st);
   } else {
     rc = (int)cudaErrorInvalidValue;
   }
   if (rc) return rc;
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// K3. q: [B, 1, H, D]; k, v: [B, S_max, Hkv, D]; valid_len: [B] int32 on
+// the card; out: [B, 1, H, D]; all contiguous. H = Hkv * G.
+extern "C" int lct_decode_attention(const void* q, const void* k,
+                                    const void* v, const void* valid_len,
+                                    void* out, int b, int s_max, int h,
+                                    int hkv, int d, float scale, int dtype,
+                                    void* stream) {
+  RowArgs a{q, k, v, static_cast<const int*>(valid_len), out, b, s_max, hkv,
+            scale, 0, nullptr, nullptr, nullptr, 0};
+  return run(a, h, d, dtype, 0, nullptr, stream);
+}
+
+// K7. As K3, plus prefix_len (0 <= prefix_len <= S_max: slots below it are
+// the same in every row) and ws, a float32 workspace of
+// n_split * B * H * (D + 2) elements, n_split = ceil(prefix_len / 64).
+extern "C" int lct_shared_prefix_attention(const void* q, const void* k,
+                                           const void* v,
+                                           const void* valid_len, void* out,
+                                           void* ws, int b, int s_max, int h,
+                                           int hkv, int d, int prefix_len,
+                                           float scale, int dtype,
+                                           void* stream) {
+  const int n_split = (prefix_len + kSplit - 1) / kSplit;
+  float* w = static_cast<float*>(ws);
+  const size_t bh = (size_t)b * h;
+  RowArgs a{q, k, v, static_cast<const int*>(valid_len), out, b, s_max, hkv,
+            scale, prefix_len, w, w + n_split * bh, w + 2 * n_split * bh,
+            n_split};
+  return run(a, h, d, dtype, prefix_len, w, stream);
 }

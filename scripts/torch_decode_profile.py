@@ -4,17 +4,24 @@ device time by kernel, for llama-1b in bf16 (random weights, seed 0).
 
     python3 scripts/torch_decode_profile.py [--n 64] [--new-tokens 32]
 
-Runs ``InferenceEngine.generate_texts`` on N copies of one 115-token
-prompt (the self-consistency fan-out of ``chip_smoke.py``) three times:
-to warm up, timed without the profiler, and under ``torch.profiler``.
-Prints one JSON object: both wall times, the summed duration of every
-device event (kernels, copies, sets), the busy and idle shares of each
-wall time, milliseconds per decode step, and the device time of the 12
-most expensive kernels (names cut to 90 characters; kernels whose cut
-names agree are summed). The profiler adds host time to every launch, so
-the shares of the unprofiled wall are the ones that describe a normal
-run (the device time itself is what the profiler recorded). Needs a CUDA
-card.
+Runs ``InferenceEngine.generate_texts`` on N copies of
+``chip_smoke.SC_PROMPT`` (the self-consistency fan-out of
+``chip_smoke.py``, on the engine ``chip_smoke.build_engine`` makes) three
+times: to warm up, timed without the profiler, and under
+``torch.profiler``. Prints one JSON object: both wall times, the summed
+duration of every device event of the profiled run (kernels, copies,
+sets), milliseconds per decode step, the device time of the 12 most
+expensive kernels (names cut to 90 characters; kernels whose cut names
+agree are summed), and two idle shares:
+
+- ``profiled_device_idle_share``: busy time and wall of the one profiled
+  run. The profiler adds host time to every launch, so this overstates
+  the idle share of a normal run.
+- ``idle_share_two_runs``: the profiled run's busy time over the
+  unprofiled run's wall. The two runs do the same work, but the share
+  combines two runs.
+
+Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -28,11 +35,6 @@ from pathlib import Path
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
-PROMPT = (
-    "Q: A baker makes 24 muffins and sells 3 boxes of 6 muffins each. "
-    "How many muffins are left? Think step by step. A:"
-)
-
 
 def main() -> int:
     ap = argparse.ArgumentParser()
@@ -43,19 +45,14 @@ def main() -> int:
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from llm_consensus_tpu_torch.engine.engine import EngineConfig, InferenceEngine
+    from chip_smoke import SC_PROMPT, build_engine
     from llm_consensus_tpu_torch.models.configs import get_config
-    from llm_consensus_tpu_torch.models.transformer import init_params
 
     if not torch.cuda.is_available():
         print("needs a CUDA card", file=sys.stderr)
         return 1
-    cfg = get_config("llama-1b")
-    engine = InferenceEngine(
-        cfg, init_params(cfg, 0, dtype=torch.bfloat16, device="cuda"),
-        engine_config=EngineConfig(max_new_tokens=args.new_tokens),
-    )
-    prompts = [PROMPT] * args.n
+    engine = build_engine(torch, get_config("llama-1b"), args.new_tokens)
+    prompts = [SC_PROMPT] * args.n
     temps = [0.7] * args.n
 
     def run():
@@ -84,10 +81,9 @@ def main() -> int:
         "wall_ms": plain_wall * 1e3,
         "wall_ms_per_step": plain_wall * 1e3 / steps,
         "device_busy_ms": busy_ms,
-        "device_busy_share": busy_ms / (plain_wall * 1e3),
-        "device_idle_share": 1 - busy_ms / (plain_wall * 1e3),
         "profiled_wall_ms": wall * 1e3,
         "profiled_device_idle_share": 1 - busy_ms / (wall * 1e3),
+        "idle_share_two_runs": 1 - busy_ms / (plain_wall * 1e3),
         "top_kernels_ms": {name: us / 1e3 for name, us in top},
     }))
     return 0

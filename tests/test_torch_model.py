@@ -7,7 +7,10 @@ and the same numpy inputs, in float32 on the CPU.
   ``use_pallas`` False and True on both sides (the JAX Pallas kernels in
   interpret mode, the port's kernel twins);
 - greedy ``generate`` tokens are identical for N in {1, 4}, with
-  ``shared_prefill`` on and off, and with an EOS hit.
+  ``shared_prefill`` on and off, and with an EOS hit;
+- decode over a shared-prefill fan-out through the shared-prefix path
+  agrees with the JAX package's within 1e-4, and sampled tokens do not
+  change when that path is switched off.
 """
 
 import jax
@@ -143,6 +146,47 @@ def test_greedy_generate_tokens_match_jax(n, shared):
     np.testing.assert_allclose(
         tout.logprob_sum.numpy(), np.asarray(jout.logprob_sum), rtol=1e-4, atol=1e-4
     )
+
+
+@pytest.mark.parametrize("use_pallas", [False, True])
+def test_shared_prefix_decode_step_matches_jax(use_pallas):
+    """Decode over a shared-prefill fan-out with the prefix length given:
+    the port's K7 twin against the JAX package's shared-prefix kernel
+    (interpret mode) or its plain path."""
+    jcfg, tcfg = _configs("g4", use_pallas)
+    jparams, tparams = _params(jcfg, seed=4)
+    rng = np.random.default_rng(4)
+    b, s, plen, steps = 4, 24, 19, 3
+    tokens = np.broadcast_to(rng.integers(3, jcfg.vocab_size, (1, s)), (b, s)).astype(np.int32)
+    lengths = np.full((b,), plen, np.int32)
+    jcache = JKVCache.create(jcfg, b, s + steps, jnp.float32)
+    _, jcache = jt.prefill(jcfg, jparams, jnp.asarray(tokens), jnp.asarray(lengths), jcache)
+    tcache = KVCache.create(tcfg, b, s + steps, torch.float32)
+    _, tcache = tt.prefill(tcfg, tparams, torch.from_numpy(tokens), torch.from_numpy(lengths), tcache)
+    for _ in range(steps):
+        nxt = rng.integers(3, jcfg.vocab_size, (b, 1)).astype(np.int32)
+        jlog, jcache = jt.decode_step(
+            jcfg, jparams, jnp.asarray(nxt), jcache, uniform_write=True,
+            shared_prefix_len=jnp.int32(plen))
+        tlog, tcache = tt.decode_step(
+            tcfg, tparams, torch.from_numpy(nxt), tcache, uniform_write=True,
+            shared_prefix_len=plen)
+        np.testing.assert_allclose(tlog.numpy(), np.asarray(jlog), **LOGIT_TOL)
+
+
+def test_shared_prefix_attention_changes_no_token():
+    jcfg, tcfg = _configs("g4", True)
+    _, tparams = _params(jcfg, seed=5)
+    tokens = np.tile(np.random.default_rng(5).integers(3, jcfg.vocab_size, (1, 16)), (4, 1))
+    outs = [
+        generate(
+            tcfg, tparams, torch.from_numpy(tokens), torch.full((4,), 13, dtype=torch.int32),
+            torch.Generator().manual_seed(0), torch.full((4,), 0.8),
+            max_new_tokens=8, shared_prefill=True, shared_prefix_attention=on,
+        ).tokens
+        for on in (False, True)
+    ]
+    torch.testing.assert_close(outs[0], outs[1], rtol=0, atol=0)
 
 
 def test_bf16_params_carry_over_bit_exact():

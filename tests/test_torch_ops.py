@@ -28,6 +28,7 @@ from llm_consensus_tpu.ops import rope as j_rope
 from llm_consensus_tpu.ops.pallas import (
     flash_causal_attention as j_flash_causal,
     flash_decode_attention as j_flash_decode,
+    flash_decode_attention_shared_prefix as j_flash_shared_prefix,
     fused_rms_norm as j_fused_rms,
 )
 from llm_consensus_tpu_torch.models.configs import RopeScaling
@@ -177,6 +178,65 @@ def test_decode_bf16_within_one_rounding_of_fp32_oracle():
 
 
 # ---------------------------------------------------------------------------
+# K7: shared-prefix decode attention
+# ---------------------------------------------------------------------------
+
+
+def _shared_cache(rng, b, s, hkv, d, plen):
+    """Dense K/V whose slots [0, plen) are the same in every row."""
+    kc = rng.standard_normal((b, s, hkv, d), np.float32)
+    vc = rng.standard_normal((b, s, hkv, d), np.float32)
+    kc[:, :plen] = kc[0, :plen]
+    vc[:, :plen] = vc[0, :plen]
+    return kc, vc
+
+
+# plen 18: ends inside a 64-slot split; 100: two splits, the second partial.
+@pytest.mark.parametrize("plen", [0, 18, 100])
+@pytest.mark.parametrize("h,hkv", [(4, 2), (8, 8)])
+def test_shared_prefix_twin_matches_jax_and_pallas(plen, h, hkv):
+    rng = np.random.default_rng(plen + h)
+    b, s, d = 3, 128, 128  # d = 128: the Pallas kernel's lane width
+    q = rng.standard_normal((b, 1, h, d), np.float32)
+    kc, vc = _shared_cache(rng, b, s, hkv, d, plen)
+    valid = np.array([plen + 1, plen + 9, s], np.int32)
+    args = (jnp.asarray(q), jnp.asarray(kc), jnp.asarray(vc), jnp.asarray(valid))
+    ref = _np(j_attn.decode_attention_shared_prefix(*args, jnp.int32(plen)))
+    pallas = _np(j_flash_shared_prefix(*args, jnp.int32(plen), interpret=True))
+    tq, tk, tv, tvl = _t(q), _t(kc), _t(vc), torch.from_numpy(valid)
+    got = ka.flash_decode_attention_shared_prefix(tq, tk, tv, tvl, plen).numpy()
+    np.testing.assert_allclose(got, ref, **F32_TOL)
+    np.testing.assert_allclose(got, pallas, **F32_TOL)
+    # The same as reading every row's whole cache (the ungrouped K3 twin).
+    plain = ka.flash_decode_attention(tq, tk, tv, tvl).numpy()
+    np.testing.assert_allclose(got, plain, **F32_TOL)
+
+
+def test_shared_prefix_reads_the_prefix_from_row_zero_only():
+    rng = np.random.default_rng(21)
+    q = _t(rng.standard_normal((2, 1, 4, 16)))
+    kc, vc = _shared_cache(rng, 2, 40, 2, 16, 24)
+    valid = torch.tensor([30, 40], dtype=torch.int32)
+    want = ka.flash_decode_attention_shared_prefix(q, _t(kc), _t(vc), valid, 24)
+    kc[1:, :24] = 1e3  # rows > 0 hold garbage in the prefix: never read
+    vc[1:, :24] = -1e3
+    got = ka.flash_decode_attention_shared_prefix(q, _t(kc), _t(vc), valid, 24)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), **F32_TOL)
+
+
+def test_shared_prefix_bf16_within_one_rounding_of_fp32_oracle():
+    rng = np.random.default_rng(6)
+    kc, vc = _shared_cache(rng, 4, 80, 2, 16, 70)
+    q, kc, vc = (_t(a, torch.bfloat16) for a in (rng.standard_normal((4, 1, 4, 16)), kc, vc))
+    valid = torch.tensor([71, 75, 78, 80], dtype=torch.int32)
+    got = ka.flash_decode_attention_shared_prefix(q, kc, vc, valid, 70)
+    assert got.dtype == torch.bfloat16
+    oracle = ka.flash_decode_attention_shared_prefix(
+        q.float(), kc.float(), vc.float(), valid, 70)
+    np.testing.assert_allclose(got.float().numpy(), oracle.numpy(), **BF16_TOL)
+
+
+# ---------------------------------------------------------------------------
 # Plain ops without kernels
 # ---------------------------------------------------------------------------
 
@@ -214,7 +274,9 @@ def test_cpu_twin_path_counts_no_launch():
     q = torch.ones(1, 4, 2, 16)
     ka.flash_causal_attention(q, q, q)
     ka.flash_decode_attention(q[:, :1], q, q, torch.tensor([4], dtype=torch.int32))
-    assert [fn.launches for fn in kernels.KERNELS] == [0, 0, 0]
+    ka.flash_decode_attention_shared_prefix(
+        q[:, :1], q, q, torch.tensor([4], dtype=torch.int32), 2)
+    assert [fn.launches for fn in kernels.KERNELS] == [0, 0, 0, 0]
 
 
 def test_every_kernel_has_a_cuda_source():
@@ -258,3 +320,9 @@ def test_kernels_match_twins_on_card(cuda, dtype):
         torch.testing.assert_close(
             ka.flash_decode_attention(qd, kc, vc, vl),
             ka.flash_decode_attention_plain(qd, kc, vc, vl), rtol=tol, atol=tol)
+        kc[:, :65], vc[:, :65] = kc[:1, :65].clone(), vc[:1, :65].clone()
+        vl = torch.tensor([66, 67, 70], dtype=torch.int32, device=cuda)
+        torch.testing.assert_close(
+            ka.flash_decode_attention_shared_prefix(qd, kc, vc, vl, 65),
+            ka.flash_decode_attention_shared_prefix_plain(qd, kc, vc, vl, 65),
+            rtol=tol, atol=tol)
