@@ -1,14 +1,16 @@
 """CLI / REPL entry point of the PyTorch port.
 
 ``python -m llm_consensus_tpu_torch --backend {fake,local} --model llama-1b
---question "..." [--max-new-tokens N] [--temperature T] [--seed S] [--cpu]``
+--question "..." [--quant {none,int8,int4}] [--max-new-tokens N]
+[--temperature T] [--seed S] [--cpu]``
 
 The flags are the JAX package's (``llm_consensus_tpu/cli.py``) for the
 surfaces ported so far. Without ``--question`` it runs the reference's REPL
 (``src/main.rs:428-471``): prompt ``"Enter a question: "``, ``exit``
 terminates. The local backend runs on the card unless ``--cpu`` is given;
 without a checkpoint loader ported yet, its weights are random, made from
-``--seed``.
+``--seed``. ``--quant int8`` quantizes them to int8 at engine init (the
+W8A16 kernel); ``int4`` raises until its kernel is ported.
 """
 
 from __future__ import annotations
@@ -66,7 +68,9 @@ def _build_backend(args):
     engine = InferenceEngine(
         cfg,
         params,
-        engine_config=EngineConfig(max_new_tokens=args.max_new_tokens),
+        engine_config=EngineConfig(
+            max_new_tokens=args.max_new_tokens, quant=args.quant
+        ),
         device=device,
     )
     return LocalBackend(engine)
@@ -85,6 +89,12 @@ def build_parser() -> argparse.ArgumentParser:
     )
     p.add_argument("--model", default="llama-1b", help="model preset name")
     p.add_argument("--panel", default=None, help="panel JSON file")
+    p.add_argument(
+        "--quant",
+        choices=["none", "int8", "int4"],
+        default="none",
+        help="weight-only quantization for the local engine",
+    )
     p.add_argument(
         "--max-rounds",
         type=int,

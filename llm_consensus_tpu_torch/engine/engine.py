@@ -6,9 +6,11 @@ the batch up to a bucket), per-call generators and detokenization. It
 stands where the reference's ``call_gemini`` stood (``src/main.rs:82-86``),
 but batched.
 
-Not ported yet: weight and KV quantization, chunked prefill, the prefix
-cache, multi-token stop sequences, streaming, scoring, speculative
-decoding, meshes and the native batch encoder.
+Weights may be quantized to int8 at init (``quant="int8"``) and the KV
+cache kept in int8 (``kv_quant``), as in the JAX package. Not ported yet:
+int4 weights, chunked prefill, the prefix cache, multi-token stop
+sequences, streaming, scoring, speculative decoding, meshes and the
+native batch encoder.
 """
 
 from __future__ import annotations
@@ -22,7 +24,8 @@ from llm_consensus_tpu_torch.engine.generate import GenerateOutput, generate
 from llm_consensus_tpu_torch.engine.sampler import SamplerConfig
 from llm_consensus_tpu_torch.engine.tokenizer import ByteTokenizer, Tokenizer
 from llm_consensus_tpu_torch.models.configs import ModelConfig
-from llm_consensus_tpu_torch.utils.device import resolve_device
+from llm_consensus_tpu_torch.ops.quant import quantize_params
+from llm_consensus_tpu_torch.utils.device import resolve_device, to_device
 from llm_consensus_tpu_torch.utils.stops import (
     earliest_stop_cut,
     single_token_stop_ids,
@@ -44,8 +47,13 @@ class EngineConfig:
     # Batch-size buckets (padded up with dummy rows).
     batch_buckets: tuple[int, ...] = (1, 2, 4, 8, 16, 32, 64)
     sampler: SamplerConfig = field(default_factory=SamplerConfig)
-    # Weight-only quantization: only "none" is ported so far.
+    # Weight-only per-channel quantization at engine init (ops/quant.py):
+    # "int8" halves the weight bytes every decode step reads; "int4"
+    # waits for its kernel (K10) and raises.
     quant: str = "none"
+    # int8 KV cache (models/cache.QuantKVCache): halves the cache bytes
+    # every decode step reads.
+    kv_quant: bool = False
 
 
 @dataclass
@@ -74,7 +82,7 @@ class InferenceEngine:
     ):
         self.cfg = cfg
         self.device = resolve_device(device)
-        self.params = _to_device(params, self.device)
+        self.params = to_device(params, self.device)
         self.tokenizer = tokenizer or ByteTokenizer()
         if self.tokenizer.vocab_size > cfg.vocab_size:
             raise ValueError(
@@ -82,10 +90,15 @@ class InferenceEngine:
                 f"vocab {cfg.vocab_size}"
             )
         self.config = engine_config or EngineConfig()
-        if self.config.quant != "none":
+        if self.config.quant == "int4":
             raise NotImplementedError(
-                f"quant={self.config.quant!r} is not ported to PyTorch yet"
+                "quant='int4' needs the packed-int4 matmul kernel (K10), "
+                "which is not ported to PyTorch yet"
             )
+        if self.config.quant == "int8":
+            self.params = quantize_params(self.params)
+        elif self.config.quant != "none":
+            raise ValueError(f"unknown quant mode {self.config.quant!r}")
         self._tokens_generated = 0
 
     # ------------------------------------------------------------------
@@ -185,6 +198,7 @@ class InferenceEngine:
             pad_id=self.tokenizer.pad_id,
             shared_prefill=shared,
             stop_ids=single_token_stop_ids(self.tokenizer, stop or ()),
+            kv_quant=self.config.kv_quant,
         )
         return self._trim_stops(self._collect(out, n_real), stop)
 
@@ -218,9 +232,3 @@ class InferenceEngine:
                 )
             )
         return results
-
-
-def _to_device(node, device: torch.device):
-    if isinstance(node, dict):
-        return {k: _to_device(v, device) for k, v in node.items()}
-    return node.to(device)

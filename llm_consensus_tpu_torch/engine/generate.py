@@ -18,6 +18,9 @@ Under ``shared_prefill`` the decode loop reads the common prompt's K/V
 once per step for the whole fan-out (``shared_prefix_attention``, on by
 default as in the JAX package); off, each row reads its whole cache.
 Both give the same outputs.
+
+``kv_quant`` keeps the cache in int8 (``QuantKVCache``, a float32 scale
+per token and kv head), as the JAX package's ``kv_quant``.
 """
 
 from __future__ import annotations
@@ -27,7 +30,7 @@ from dataclasses import dataclass
 import torch
 
 from llm_consensus_tpu_torch.engine.sampler import SamplerConfig, sample_token
-from llm_consensus_tpu_torch.models.cache import KVCache
+from llm_consensus_tpu_torch.models.cache import KVCache, QuantKVCache
 from llm_consensus_tpu_torch.models.configs import ModelConfig
 from llm_consensus_tpu_torch.models.transformer import decode_step, prefill
 
@@ -60,6 +63,7 @@ def generate(
     shared_prefill: bool = False,
     stop_ids: tuple[int, ...] = (),
     shared_prefix_attention: bool = True,
+    kv_quant: bool = False,
 ) -> GenerateOutput:
     """Generate up to ``max_new_tokens`` for a batch of right-padded prompts.
 
@@ -70,6 +74,7 @@ def generate(
     prefilled once at B=1 and its cache copied to all B rows.
     ``shared_prefix_attention``: under ``shared_prefill``, decode reads
     the prompt's slots [0, lengths[0]) once per step for all rows.
+    ``kv_quant``: the KV cache is int8 (``QuantKVCache``).
     """
     b, s = tokens.shape
     if cache_len is None:
@@ -82,6 +87,7 @@ def generate(
         cfg, params, tokens, lengths,
         cache_len=cache_len,
         shared_prefill=shared_prefill,
+        kv_quant=kv_quant,
     )
     return _decode_loop(
         cfg,
@@ -110,27 +116,38 @@ def _prefill_into_cache(
     *,
     cache_len: int,
     shared_prefill: bool = False,
+    kv_quant: bool = False,
 ):
     """Allocate the cache, fill it, return (first-token logits [B, V],
     cache at B rows)."""
     b = tokens.shape[0]
     dtype = params["embed"].dtype
+
+    def make_cache(batch: int):
+        if kv_quant:
+            return QuantKVCache.create(cfg, batch, cache_len, tokens.device)
+        return KVCache.create(cfg, batch, cache_len, dtype, tokens.device)
+
     if shared_prefill:
         # Self-consistency fan-out: all B rows decode from the SAME
         # prompt, so prefill once at B=1 and copy the cache to B rows
         # (the rows then diverge, so each needs its own buffer).
-        cache1 = KVCache.create(cfg, 1, cache_len, dtype, tokens.device)
+        cache1 = make_cache(1)
         logits1, cache1 = prefill(cfg, params, tokens[:1], lengths[:1], cache1)
         logits = logits1.expand(b, -1)
-        cache = KVCache(
-            k=cache1.k.repeat(1, b, 1, 1, 1),
-            v=cache1.v.repeat(1, b, 1, 1, 1),
-            length=cache1.length.expand(b).contiguous(),
-        )
+        cache = _broadcast_cache(cache1, b)
     else:
-        cache = KVCache.create(cfg, b, cache_len, dtype, tokens.device)
+        cache = make_cache(b)
         logits, cache = prefill(cfg, params, tokens, lengths, cache)
     return logits, cache
+
+
+def _broadcast_cache(cache1, b: int):
+    """Copy a B=1 cache's buffers (and length) to B rows."""
+    return type(cache1)(
+        *(t.repeat(1, b, *([1] * (t.ndim - 2))) for t in cache1.leaves),
+        length=cache1.length.expand(b).contiguous(),
+    )
 
 
 def _is_terminal(tok: torch.Tensor, eos_id: int, stop_ids: tuple[int, ...]):

@@ -1,15 +1,19 @@
-"""Pre-norm GQA transformer (Llama family), dense path, in PyTorch.
+"""Pre-norm GQA transformer (Llama family), dense models, in PyTorch.
 
-Counterpart of ``llm_consensus_tpu.models.transformer`` for the dense
-bf16 path: the same parameter tree (layers stacked on a leading axis),
-the same ``[B, S, H, D]`` layouts, the same float32 norms, softmax and
-logits. Differences by design:
+Counterpart of ``llm_consensus_tpu.models.transformer`` for dense models
+with bf16 or int8 weights and a bf16 or int8 KV cache: the same parameter
+tree (layers stacked on a leading axis, int8 leaves as
+:class:`~llm_consensus_tpu_torch.ops.quant.QuantizedTensor`), the same
+``[B, S, H, D]`` layouts, the same float32 norms, softmax and logits.
+Differences by design:
 
 - The layer loop is a Python loop over views of the stacked weights
   (PyTorch runs eagerly; there is no ``lax.scan`` to compile).
 - The KV cache is written in place (see :mod:`.cache`).
 - ``cfg.use_pallas`` routes RMSNorm and attention through the
-  hand-written kernels of :mod:`llm_consensus_tpu_torch.ops.kernels`.
+  hand-written kernels of :mod:`llm_consensus_tpu_torch.ops.kernels`;
+  int8 weights go through the W8A16 kernel by shape, as in the JAX
+  package (:func:`~llm_consensus_tpu_torch.ops.quant.matmul`).
 
 MoE, sliding windows, ring attention, the paged steps and the chunk mode
 are not ported yet; the entry points raise on configs that need them.
@@ -26,14 +30,20 @@ import math
 import numpy as np
 import torch
 
-from llm_consensus_tpu_torch.models.cache import KVCache
+from llm_consensus_tpu_torch.models.cache import KVCache, QuantKVCache, quantize_kv
 from llm_consensus_tpu_torch.models.configs import ModelConfig
 from llm_consensus_tpu_torch.ops import kernels
 from llm_consensus_tpu_torch.ops.activations import swiglu
-from llm_consensus_tpu_torch.ops.attention import causal_attention, decode_attention
+from llm_consensus_tpu_torch.ops.attention import (
+    causal_attention,
+    decode_attention,
+    decode_attention_quant,
+)
 from llm_consensus_tpu_torch.ops.norms import rms_norm
+from llm_consensus_tpu_torch.ops.quant import QuantizedTensor, leaves, quantize_params
+from llm_consensus_tpu_torch.ops.quant import matmul as _qmm
 from llm_consensus_tpu_torch.ops.rope import apply_rope, rope_cos_sin
-from llm_consensus_tpu_torch.utils.device import resolve_device
+from llm_consensus_tpu_torch.utils.device import resolve_device, to_device
 
 
 def _check_supported(cfg: ModelConfig) -> None:
@@ -70,6 +80,51 @@ def _attn_decode(cfg: ModelConfig, q, k_cache, v_cache, valid_len, shared_prefix
             )
         return kernels.flash_decode_attention(q, k_cache, v_cache, valid_len)
     return decode_attention(q, k_cache, v_cache, valid_len)
+
+
+_STACKED_DECODE = False
+
+
+def set_stacked_decode(enabled: bool) -> None:
+    """Route int8-cache decode attention through the ``_stacked`` kernel
+    wrappers, which take the whole cache and the layer index (the JAX
+    package's switch of the same name; off by default). Outputs are the
+    same either way: here both launch the same kernels, on the same
+    views."""
+    global _STACKED_DECODE
+    _STACKED_DECODE = enabled
+
+
+def _attn_decode_quant(cfg: ModelConfig, q, k_q, k_s, v_q, v_s, valid_len,
+                       shared_prefix_len=None):
+    """Decode attention over one layer's int8 cache views [B, Hkv, S, D]
+    (scales [B, Hkv, S]): K4, or K7-q8 for a shared prefix, on the kernel
+    path; the plain path dequantizes and reads every row (same
+    outputs)."""
+    if cfg.use_pallas:
+        if shared_prefix_len is not None:
+            return kernels.flash_decode_attention_shared_prefix_q8(
+                q, k_q, k_s, v_q, v_s, valid_len, shared_prefix_len
+            )
+        return kernels.flash_decode_attention_q8(q, k_q, k_s, v_q, v_s, valid_len)
+    return decode_attention_quant(q, k_q, k_s, v_q, v_s, valid_len)
+
+
+def _attn_decode_quant_stacked(cfg: ModelConfig, q, k_q, k_s, v_q, v_s, valid_len,
+                               layer: int, shared_prefix_len=None):
+    """As :func:`_attn_decode_quant`, given the whole stacked cache
+    [L, B, Hkv, S, D] and the layer index."""
+    if cfg.use_pallas:
+        if shared_prefix_len is not None:
+            return kernels.flash_decode_attention_shared_prefix_q8_stacked(
+                q, k_q, k_s, v_q, v_s, valid_len, shared_prefix_len, layer
+            )
+        return kernels.flash_decode_attention_q8_stacked(
+            q, k_q, k_s, v_q, v_s, valid_len, layer
+        )
+    return decode_attention_quant(
+        q, k_q[layer], k_s[layer], v_q[layer], v_s[layer], valid_len
+    )
 
 
 # ---------------------------------------------------------------------------
@@ -139,6 +194,22 @@ def init_params(
     return params
 
 
+def init_params_quantized(
+    cfg: ModelConfig,
+    generator: torch.Generator | int = 0,
+    *,
+    bits: int = 8,
+    dtype=torch.bfloat16,
+    device: str | torch.device | None = None,
+) -> dict:
+    """Init on the CPU, quantize there, then move to ``device``: the
+    card only ever holds the int8 leaves, never the full-width ones.
+    ``generator`` is a CPU generator or an int seed for one."""
+    dev = resolve_device(device)
+    params = quantize_params(init_params(cfg, generator, dtype, "cpu"), bits=bits)
+    return to_device(params, dev)
+
+
 def _leaf_to_tensor(a, device, dtype) -> torch.Tensor:
     a = np.asarray(a)
     if a.dtype.name == "bfloat16":  # ml_dtypes: same bits as torch.bfloat16
@@ -153,25 +224,25 @@ def params_from_jax(
 ) -> dict[str, torch.Tensor]:
     """Carry a JAX parameter tree (leaves as numpy arrays, e.g. from
     ``jax.tree.map(np.asarray, params)``) over to tensors: the same tree,
-    moved to ``device`` and, when ``dtype`` is given, cast to it."""
+    moved to ``device`` and, when ``dtype`` is given, cast to it. A node
+    with ``.q`` and ``.scale`` (the JAX package's quantized leaf) becomes
+    a :class:`QuantizedTensor`, its int8 and float32 kept as they are."""
     dev = resolve_device(device)
 
     def conv(node):
         if isinstance(node, dict):
             return {k: conv(v) for k, v in node.items()}
+        if hasattr(node, "q") and hasattr(node, "scale"):
+            return QuantizedTensor(
+                q=_leaf_to_tensor(node.q, dev, None),
+                scale=_leaf_to_tensor(node.scale, dev, None),
+            )
         return _leaf_to_tensor(node, dev, dtype)
 
     return conv(tree)
 
 
 def param_count(params: dict) -> int:
-    def leaves(node):
-        if isinstance(node, dict):
-            for v in node.values():
-                yield from leaves(v)
-        else:
-            yield node
-
     return sum(t.numel() for t in leaves(params))
 
 
@@ -182,9 +253,9 @@ def param_count(params: dict) -> int:
 
 def _project_qkv(cfg: ModelConfig, p: dict, h: torch.Tensor):
     b, s, _ = h.shape
-    q = h @ p["wq"]
-    k = h @ p["wk"]
-    v = h @ p["wv"]
+    q = _qmm(h, p["wq"])
+    k = _qmm(h, p["wk"])
+    v = _qmm(h, p["wv"])
     if cfg.qkv_bias:
         q = q + p["bq"]
         k = k + p["bk"]
@@ -211,15 +282,20 @@ def _block(
     positions: torch.Tensor | None,
     uniform_write: bool = False,
     shared_prefix_len: int | None = None,
+    stacked: tuple | None = None,
 ) -> torch.Tensor:
     """One transformer block; returns the new residual stream.
 
-    ``kv_layer``: this layer's (k, v) cache views [B, S_max, Hkv, D],
-    written in place in modes ``prefill`` (slots [0, S)) and ``decode``
-    (slot ``valid_len[b]`` of each row). ``uniform_write``: every row
-    writes at the same slot (the shared-prefill fan-out), so the decode
-    write is one slice copy along the slot axis instead of a scatter.
+    ``kv_layer``: this layer's cache views, written in place in modes
+    ``prefill`` (slots [0, S)) and ``decode`` (slot ``valid_len[b]`` of
+    each row): (k, v) [B, S_max, Hkv, D] for the bf16 cache, or (k_q,
+    v_q, k_scale, v_scale) head-major for the int8 cache, written
+    quantized per (token, kv head). ``uniform_write``: every row writes
+    at the same slot (the shared-prefill fan-out), so the decode write is
+    one slice copy along the slot axis instead of a scatter.
     ``shared_prefix_len`` (decode mode): see :func:`_attn_decode`.
+    ``stacked`` (int8 decode under :func:`set_stacked_decode`): (the whole
+    cache's four buffers, the layer index), for the ``_stacked`` wrappers.
     """
     h = _rms(cfg, x, p["attn_norm"])
     q, k, v = _project_qkv(cfg, p, h)
@@ -230,10 +306,45 @@ def _block(
         attn = _attn_causal(cfg, q, k, v, positions)
     elif mode == "prefill":
         attn = _attn_causal(cfg, q, k, v, positions)
-        k_l, v_l = kv_layer
         s = k.shape[1]
-        k_l[:, :s] = k
-        v_l[:, :s] = v
+        if len(kv_layer) == 2:
+            k_l, v_l = kv_layer
+            k_l[:, :s] = k
+            v_l[:, :s] = v
+        else:
+            kq_l, vq_l, ks_l, vs_l = kv_layer
+            kq, ks = quantize_kv(k)  # [B, S, Hkv, D] / [B, S, Hkv]
+            vq, vs = quantize_kv(v)
+            kq_l[:, :, :s] = kq.transpose(1, 2)
+            vq_l[:, :, :s] = vq.transpose(1, 2)
+            ks_l[:, :, :s] = ks.transpose(1, 2)
+            vs_l[:, :, :s] = vs.transpose(1, 2)
+    elif mode == "decode" and len(kv_layer) == 4:
+        kq_l, vq_l, ks_l, vs_l = kv_layer
+        kq1, ks1 = quantize_kv(k[:, 0])  # [B, Hkv, D] / [B, Hkv]
+        vq1, vs1 = quantize_kv(v[:, 0])
+        if uniform_write:
+            slot = valid_len[:1].long()
+            kq_l.index_copy_(2, slot, kq1[:, :, None])
+            vq_l.index_copy_(2, slot, vq1[:, :, None])
+            ks_l.index_copy_(2, slot, ks1[:, :, None])
+            vs_l.index_copy_(2, slot, vs1[:, :, None])
+        else:
+            rows = torch.arange(x.shape[0], device=x.device)
+            pos = valid_len.long()
+            kq_l[rows, :, pos] = kq1
+            vq_l[rows, :, pos] = vq1
+            ks_l[rows, :, pos] = ks1
+            vs_l[rows, :, pos] = vs1
+        if stacked is not None:
+            (kq_f, vq_f, ks_f, vs_f), layer = stacked
+            attn = _attn_decode_quant_stacked(
+                cfg, q, kq_f, ks_f, vq_f, vs_f, valid_len + 1, layer, shared_prefix_len
+            )
+        else:
+            attn = _attn_decode_quant(
+                cfg, q, kq_l, ks_l, vq_l, vs_l, valid_len + 1, shared_prefix_len
+            )
     elif mode == "decode":
         k_l, v_l = kv_layer
         if uniform_write:
@@ -248,7 +359,7 @@ def _block(
     else:  # pragma: no cover
         raise ValueError(mode)
 
-    x = x + attn.reshape(*x.shape[:-1], -1) @ p["wo"]
+    x = x + _qmm(attn.reshape(*x.shape[:-1], -1), p["wo"])
     h2 = _rms(cfg, x, p["mlp_norm"])
     return x + _mlp(cfg, p, h2)
 
@@ -259,7 +370,7 @@ def _run_layers(
     x: torch.Tensor,
     cos: torch.Tensor,
     sin: torch.Tensor,
-    cache: KVCache | None,
+    cache: KVCache | QuantKVCache | None,
     mode: str,
     valid_len: torch.Tensor | None,
     positions: torch.Tensor | None,
@@ -267,23 +378,30 @@ def _run_layers(
     shared_prefix_len: int | None = None,
 ) -> torch.Tensor:
     blocks = params["blocks"]
+    bufs = () if cache is None else cache.leaves
+    stacked_decode = _STACKED_DECODE and mode == "decode" and len(bufs) == 4
     for layer in range(cfg.n_layers):
-        p = {name: leaf[layer] for name, leaf in blocks.items()}
-        kv_layer = None if cache is None else (cache.k[layer], cache.v[layer])
+        p = {
+            name: leaf.layer(layer) if isinstance(leaf, QuantizedTensor) else leaf[layer]
+            for name, leaf in blocks.items()
+        }
+        kv_layer = tuple(t[layer] for t in bufs) or None
         x = _block(
             cfg, p, x, cos, sin, kv_layer, mode, valid_len, positions,
             uniform_write=uniform_write, shared_prefix_len=shared_prefix_len,
+            stacked=(bufs, layer) if stacked_decode else None,
         )
     return x
 
 
 def _unembed(cfg: ModelConfig, params: dict, x: torch.Tensor) -> torch.Tensor:
     """Final norm and float32 logits (bf16 operands multiply exactly in
-    float32, as the JAX package's preferred_element_type=float32)."""
-    x = _rms(cfg, x, params["norm_f"]).float()
+    float32, as the JAX package's preferred_element_type=float32; an int8
+    lm_head goes through the W8A16 kernel with a float32 output)."""
+    x = _rms(cfg, x, params["norm_f"])
     if cfg.tie_embeddings:
-        return x @ params["embed"].float().T
-    return x @ params["lm_head"].float()
+        return x.float() @ params["embed"].float().T
+    return _qmm(x, params["lm_head"], out_dtype=torch.float32)
 
 
 # ---------------------------------------------------------------------------
@@ -319,8 +437,8 @@ def prefill(
     params: dict,
     tokens: torch.Tensor,
     lengths: torch.Tensor,
-    cache: KVCache,
-) -> tuple[torch.Tensor, KVCache]:
+    cache: KVCache | QuantKVCache,
+) -> tuple[torch.Tensor, KVCache | QuantKVCache]:
     """Prefill right-padded prompts.
 
     tokens: [B, S] right-padded; lengths: [B] int32 true prompt lengths.
@@ -352,10 +470,10 @@ def decode_step(
     cfg: ModelConfig,
     params: dict,
     tokens: torch.Tensor,
-    cache: KVCache,
+    cache: KVCache | QuantKVCache,
     uniform_write: bool = False,
     shared_prefix_len: int | None = None,
-) -> tuple[torch.Tensor, KVCache]:
+) -> tuple[torch.Tensor, KVCache | QuantKVCache]:
     """One decode step: tokens [B, 1] -> (logits [B, V] float32, cache).
 
     The new token's k/v is written at slot ``cache.length`` (in place) and

@@ -1,9 +1,10 @@
 """Attention: causal prefill and single-step decode against a KV cache.
 
 The plain PyTorch versions of ``llm_consensus_tpu.ops.attention``'s
-``causal_attention``, ``decode_attention`` and
-``decode_attention_shared_prefix``; the hand-written kernels
-that replace them on the hot path are in
+``causal_attention``, ``decode_attention``,
+``decode_attention_shared_prefix`` and their int8-cache forms
+``decode_attention_quant`` and ``decode_attention_shared_prefix_quant``;
+the hand-written kernels that replace them on the hot path are in
 :mod:`llm_consensus_tpu_torch.ops.kernels.attention`.
 
 Conventions (the JAX package's):
@@ -162,3 +163,54 @@ def decode_attention_shared_prefix(
     m2, l2, o2 = _partial_softmax(scores2, v_cache, mask2)
     out = merge_decode_partials(m1, l1, o1, m2, l2, o2)  # [B, Hkv, G, 1, D]
     return out.permute(0, 3, 1, 2, 4).reshape(b, 1, h, -1).to(q.dtype)
+
+
+def _dequantize_kv(k_q, k_scale, dtype):
+    """int8 head-major [B, Hkv, S, D] with scales [B, Hkv, S] ->
+    token-major [B, S, Hkv, D] in ``dtype``."""
+    return (k_q.float() * k_scale[..., None]).to(dtype).transpose(1, 2)
+
+
+def decode_attention_quant(
+    q: torch.Tensor,
+    k_q: torch.Tensor,
+    k_scale: torch.Tensor,
+    v_q: torch.Tensor,
+    v_scale: torch.Tensor,
+    valid_len: torch.Tensor,
+    window: int = 0,
+) -> torch.Tensor:
+    """Decode attention over an int8 cache (the plain path).
+
+    q: [B, 1, H, D]; k_q/v_q: [B, Hkv, S, D] int8 (head-major,
+    ``QuantKVCache`` layout); k_scale/v_scale: [B, Hkv, S] float32.
+    Dequantizes into q's type and defers to :func:`decode_attention`.
+    """
+    return decode_attention(
+        q,
+        _dequantize_kv(k_q, k_scale, q.dtype),
+        _dequantize_kv(v_q, v_scale, q.dtype),
+        valid_len,
+        window=window,
+    )
+
+
+def decode_attention_shared_prefix_quant(
+    q: torch.Tensor,
+    k_q: torch.Tensor,
+    k_scale: torch.Tensor,
+    v_q: torch.Tensor,
+    v_scale: torch.Tensor,
+    valid_len: torch.Tensor,
+    prefix_len: int,
+) -> torch.Tensor:
+    """Shared-prefix decode attention over the int8 head-major cache (the
+    plain path: dequantize, defer). Layouts as
+    :func:`decode_attention_quant`."""
+    return decode_attention_shared_prefix(
+        q,
+        _dequantize_kv(k_q, k_scale, q.dtype),
+        _dequantize_kv(v_q, v_scale, q.dtype),
+        valid_len,
+        prefix_len,
+    )

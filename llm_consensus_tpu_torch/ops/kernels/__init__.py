@@ -11,20 +11,38 @@ launches and nothing else.
 - K3 :func:`~.attention.flash_decode_attention` (``csrc/decode_attention.cu``)
 - K7 :func:`~.attention.flash_decode_attention_shared_prefix`
   (``csrc/decode_attention.cu``)
+- K4 :func:`~.attention.flash_decode_attention_q8` and K5
+  :func:`~.attention.flash_decode_attention_q8_stacked`, K4 on a layer's
+  views (``csrc/decode_attention.cu``)
+- K6 :func:`~.quant_matmul.quant_matmul_2d` (``csrc/quant_matmul.cu``;
+  ``quant_matmul_stacked`` is the same kernel on a layer's views)
+- K7-q8 :func:`~.attention.flash_decode_attention_shared_prefix_q8` and
+  :func:`~.attention.flash_decode_attention_shared_prefix_q8_stacked`
+  (``csrc/decode_attention.cu``)
 """
 
 from llm_consensus_tpu_torch.ops.kernels.attention import (
     flash_causal_attention,
     flash_decode_attention,
+    flash_decode_attention_q8,
+    flash_decode_attention_q8_stacked,
     flash_decode_attention_shared_prefix,
+    flash_decode_attention_shared_prefix_q8,
+    flash_decode_attention_shared_prefix_q8_stacked,
 )
 from llm_consensus_tpu_torch.ops.kernels.norms import fused_rms_norm
+from llm_consensus_tpu_torch.ops.kernels.quant_matmul import quant_matmul_2d
 
 KERNELS = (
     fused_rms_norm,
     flash_causal_attention,
     flash_decode_attention,
     flash_decode_attention_shared_prefix,
+    flash_decode_attention_q8,
+    flash_decode_attention_q8_stacked,
+    quant_matmul_2d,
+    flash_decode_attention_shared_prefix_q8,
+    flash_decode_attention_shared_prefix_q8_stacked,
 )
 
 
@@ -37,7 +55,12 @@ __all__ = [
     "KERNELS",
     "flash_causal_attention",
     "flash_decode_attention",
+    "flash_decode_attention_q8",
+    "flash_decode_attention_q8_stacked",
     "flash_decode_attention_shared_prefix",
+    "flash_decode_attention_shared_prefix_q8",
+    "flash_decode_attention_shared_prefix_q8_stacked",
     "fused_rms_norm",
+    "quant_matmul_2d",
     "reset_launch_counts",
 ]

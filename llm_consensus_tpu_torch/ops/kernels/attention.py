@@ -1,13 +1,23 @@
-"""K2, K3 and K7: causal prefill, decode and shared-prefix decode
-attention — the wrappers of ``csrc/causal_attention.cu`` and
-``csrc/decode_attention.cu`` and their twins.
+"""K2, K3, K7 and their int8-cache forms K4, K5, K7-q8: causal prefill,
+decode and shared-prefix decode attention — the wrappers of
+``csrc/causal_attention.cu`` and ``csrc/decode_attention.cu`` and their
+twins.
 
 They replace ``llm_consensus_tpu/ops/pallas/attention.py``'s
-``flash_causal_attention``, ``flash_decode_attention`` and (dense cache)
-``flash_decode_attention_shared_prefix``. The source note
-of each ``.cu`` file says what bounds it on the card and what its design
+``flash_causal_attention``, ``flash_decode_attention``,
+``flash_decode_attention_shared_prefix``, ``flash_decode_attention_q8``,
+``flash_decode_attention_q8_stacked``,
+``flash_decode_attention_shared_prefix_q8`` and
+``flash_decode_attention_shared_prefix_q8_stacked``. The source note of
+each ``.cu`` file says what bounds it on the card and what its design
 does about that. Layouts are the JAX package's: q [B, S, H, D], k/v
-[B, S, Hkv, D], the cache [B, S_max, Hkv, D].
+[B, S, Hkv, D], the dense cache [B, S_max, Hkv, D], the int8 cache
+head-major [B, Hkv, S_max, D] with float32 scales [B, Hkv, S_max].
+
+The two ``_stacked`` forms exist in the JAX package because a Pallas
+operand must be a whole buffer, so the layer index rides scalar
+prefetch. Here ``k_q[layer]`` is a zero-copy view: each launches the
+K4 or K7-q8 kernel on the layer's views, and counts its own launches.
 """
 
 from __future__ import annotations
@@ -15,9 +25,11 @@ from __future__ import annotations
 import torch
 
 from llm_consensus_tpu_torch.ops.attention import (
+    _NEG_INF,
     causal_attention,
     decode_attention,
     decode_attention_shared_prefix,
+    merge_decode_partials,
 )
 from llm_consensus_tpu_torch.ops.kernels import build
 
@@ -215,3 +227,232 @@ def flash_decode_attention_shared_prefix(
 
 
 flash_decode_attention_shared_prefix.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K4, K5, K7-q8: decode over the int8 head-major cache
+# ---------------------------------------------------------------------------
+
+
+def _q8_scores(q, k_q, k_scale):
+    """Scores [B, Hkv, G, S] in float32: ``q . k_q`` times the slot's K
+    scale and d^-1/2 (the Pallas kernels' ``_q8_attend`` fold)."""
+    b, _, h, d = q.shape
+    hkv = k_q.shape[1]
+    qg = q.float().reshape(b, hkv, h // hkv, d)
+    scores = torch.einsum("bkgd,bksd->bkgs", qg, k_q.float())
+    return scores * (k_scale[:, :, None, :] * d**-0.5)
+
+
+def _q8_partial(scores, v_q, v_scale, mask):
+    """(m, l, o) over one masked slot range, the V scale folded into the
+    value product only (l stays the true softmax sum, as ``_online_fold``
+    keeps it). scores [B, Hkv, G, S]; mask broadcastable to it."""
+    scores = torch.where(mask, scores, _NEG_INF)
+    m = scores.amax(dim=-1, keepdim=True)
+    m_safe = torch.where(m <= _NEG_INF / 2, 0.0, m)
+    p = torch.exp(scores - m_safe)
+    l = p.sum(dim=-1, keepdim=True)
+    acc = torch.einsum("bkgs,bksd->bkgd", p * v_scale[:, :, None, :], v_q.float())
+    return m, l, acc / torch.clamp(l, min=1e-30)
+
+
+def _q8_out(o, q):
+    b, _, h, d = q.shape
+    return o.reshape(b, 1, h, d).to(q.dtype)
+
+
+def flash_decode_attention_q8_plain(q, k_q, k_scale, v_q, v_scale, valid_len):
+    """The plain PyTorch twin of K4: ``_q8_attend``'s arithmetic."""
+    s = k_q.shape[2]
+    slot = torch.arange(s, device=q.device)
+    mask = (slot[None, :] < valid_len[:, None])[:, None, None, :]
+    _, _, o = _q8_partial(_q8_scores(q, k_q, k_scale), v_q, v_scale, mask)
+    return _q8_out(o, q)
+
+
+def flash_decode_attention_shared_prefix_q8_plain(
+    q, k_q, k_scale, v_q, v_scale, valid_len, prefix_len
+):
+    """The plain PyTorch twin of K7-q8: all rows' queries against row 0's
+    prefix slots [0, prefix_len), each row against its own slots
+    [prefix_len, valid_len), merged by log-sum-exp."""
+    s = k_q.shape[2]
+    slot = torch.arange(s, device=q.device)
+    mask1 = (slot < prefix_len)[None, None, None, :]
+    p1 = _q8_partial(
+        _q8_scores(q, k_q[:1].expand_as(k_q), k_scale[:1].expand_as(k_scale)),
+        v_q[:1].expand_as(v_q), v_scale[:1].expand_as(v_scale), mask1,
+    )
+    mask2 = ((slot[None, :] >= prefix_len) & (slot[None, :] < valid_len[:, None]))[
+        :, None, None, :
+    ]
+    p2 = _q8_partial(_q8_scores(q, k_q, k_scale), v_q, v_scale, mask2)
+    return _q8_out(merge_decode_partials(*p1, *p2), q)
+
+
+def _check_decode_q8(name, q, k_q, k_scale, v_q, v_scale, valid_len):
+    """Validate int8-cache decode operands on the card; return
+    (B, S_max, H, Hkv, D)."""
+    if q.dtype not in _DTYPES:
+        raise TypeError(f"{name} takes float32 or bfloat16 q, got {q.dtype}")
+    b, one, h, d = q.shape
+    _, hkv, s_max, _ = k_q.shape
+    if (
+        one != 1
+        or k_q.shape != (b, hkv, s_max, d)
+        or v_q.shape != k_q.shape
+        or k_scale.shape != (b, hkv, s_max)
+        or v_scale.shape != k_scale.shape
+        or h % hkv
+        or h // hkv not in _DECODE_GROUPS
+        or d not in _HEAD_DIMS
+    ):
+        raise ValueError(
+            f"bad shapes q {q.shape} cache {k_q.shape} scales {k_scale.shape} "
+            f"(G in {_DECODE_GROUPS}, D in {_HEAD_DIMS})"
+        )
+    for t, dtype in ((q, q.dtype), (k_q, torch.int8), (v_q, torch.int8),
+                     (k_scale, torch.float32), (v_scale, torch.float32),
+                     (valid_len, torch.int32)):
+        if t.dtype != dtype or not t.is_cuda or not t.is_contiguous():
+            raise ValueError(
+                f"{name} needs contiguous tensors on the card: q float32/bfloat16, "
+                "k_q/v_q int8, scales float32, valid_len int32"
+            )
+    if valid_len.shape != (b,):
+        raise ValueError("valid_len must be an int32 [B] tensor")
+    return b, s_max, h, hkv, d
+
+
+def _launch_q8(name, q, k_q, k_scale, v_q, v_scale, valid_len, prefix_len=None):
+    """Launch K4 (``prefix_len`` None) or K7-q8 on the card; the caller
+    counts the launch."""
+    b, s_max, h, hkv, d = _check_decode_q8(name, q, k_q, k_scale, v_q, v_scale, valid_len)
+    lib = build.load_library()
+    out = torch.empty_like(q)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    if prefix_len is None:
+        rc = lib.lct_decode_attention_q8(
+            q.data_ptr(), k_q.data_ptr(), k_scale.data_ptr(), v_q.data_ptr(),
+            v_scale.data_ptr(), valid_len.data_ptr(), out.data_ptr(),
+            b, s_max, h, hkv, d, float(d ** -0.5), _DTYPES[q.dtype], stream,
+        )
+        build.check(rc, "decode_attention_q8")
+        return out
+    if not 0 <= prefix_len <= s_max:
+        raise ValueError(f"prefix_len {prefix_len} outside [0, {s_max}]")
+    n_split = -(-prefix_len // _PREFIX_SPLIT)
+    ws = torch.empty(max(1, n_split * b * h * (d + 2)), dtype=torch.float32, device=q.device)
+    rc = lib.lct_shared_prefix_attention_q8(
+        q.data_ptr(), k_q.data_ptr(), k_scale.data_ptr(), v_q.data_ptr(),
+        v_scale.data_ptr(), valid_len.data_ptr(), out.data_ptr(), ws.data_ptr(),
+        b, s_max, h, hkv, d, prefix_len, float(d ** -0.5), _DTYPES[q.dtype], stream,
+    )
+    build.check(rc, "shared_prefix_attention_q8")
+    return out
+
+
+def flash_decode_attention_q8(
+    q: torch.Tensor,
+    k_q: torch.Tensor,
+    k_scale: torch.Tensor,
+    v_q: torch.Tensor,
+    v_scale: torch.Tensor,
+    valid_len: torch.Tensor,
+) -> torch.Tensor:
+    """K4: one-token decode attention over the int8 head-major cache.
+
+    q: [B, 1, H, D]; k_q/v_q: [B, Hkv, S_max, D] int8; k_scale/v_scale:
+    [B, Hkv, S_max] float32; valid_len: [B] int32, each >= 1. Returns
+    [B, 1, H, D] in q's dtype. CPU tensors take the plain twin; CUDA
+    tensors launch the kernel.
+    """
+    if not q.is_cuda:
+        return flash_decode_attention_q8_plain(q, k_q, k_scale, v_q, v_scale, valid_len)
+    out = _launch_q8("flash_decode_attention_q8", q, k_q, k_scale, v_q, v_scale, valid_len)
+    flash_decode_attention_q8.launches += 1
+    return out
+
+
+flash_decode_attention_q8.launches = 0
+
+
+def flash_decode_attention_q8_stacked(
+    q: torch.Tensor,
+    k_q: torch.Tensor,
+    k_scale: torch.Tensor,
+    v_q: torch.Tensor,
+    v_scale: torch.Tensor,
+    valid_len: torch.Tensor,
+    layer: int,
+) -> torch.Tensor:
+    """K5: K4 over layer ``layer`` of the whole stacked cache (k_q/v_q
+    [L, B, Hkv, S_max, D], scales [L, B, Hkv, S_max]), launched on the
+    layer's zero-copy views."""
+    views = (k_q[layer], k_scale[layer], v_q[layer], v_scale[layer])
+    if not q.is_cuda:
+        return flash_decode_attention_q8_plain(q, *views, valid_len)
+    out = _launch_q8("flash_decode_attention_q8_stacked", q, *views, valid_len)
+    flash_decode_attention_q8_stacked.launches += 1
+    return out
+
+
+flash_decode_attention_q8_stacked.launches = 0
+
+
+def flash_decode_attention_shared_prefix_q8(
+    q: torch.Tensor,
+    k_q: torch.Tensor,
+    k_scale: torch.Tensor,
+    v_q: torch.Tensor,
+    v_scale: torch.Tensor,
+    valid_len: torch.Tensor,
+    prefix_len: int,
+) -> torch.Tensor:
+    """K7-q8: as :func:`flash_decode_attention_q8`, plus ``prefix_len``:
+    every row's slots [0, prefix_len) hold the same K/V, so the kernel
+    reads them once (from row 0) for all rows and each row reads only its
+    slots [prefix_len, valid_len). CPU tensors take the plain twin; CUDA
+    tensors launch the kernel (a prefix pass, then the rows' suffix pass
+    that merges both)."""
+    prefix_len = int(prefix_len)
+    if not q.is_cuda:
+        return flash_decode_attention_shared_prefix_q8_plain(
+            q, k_q, k_scale, v_q, v_scale, valid_len, prefix_len
+        )
+    out = _launch_q8(
+        "flash_decode_attention_shared_prefix_q8",
+        q, k_q, k_scale, v_q, v_scale, valid_len, prefix_len,
+    )
+    flash_decode_attention_shared_prefix_q8.launches += 1
+    return out
+
+
+flash_decode_attention_shared_prefix_q8.launches = 0
+
+
+def flash_decode_attention_shared_prefix_q8_stacked(
+    q: torch.Tensor,
+    k_q: torch.Tensor,
+    k_scale: torch.Tensor,
+    v_q: torch.Tensor,
+    v_scale: torch.Tensor,
+    valid_len: torch.Tensor,
+    prefix_len: int,
+    layer: int,
+) -> torch.Tensor:
+    """K7-q8 over layer ``layer`` of the whole stacked cache, launched on
+    the layer's zero-copy views."""
+    prefix_len = int(prefix_len)
+    views = (k_q[layer], k_scale[layer], v_q[layer], v_scale[layer])
+    if not q.is_cuda:
+        return flash_decode_attention_shared_prefix_q8_plain(q, *views, valid_len, prefix_len)
+    out = _launch_q8(
+        "flash_decode_attention_shared_prefix_q8_stacked", q, *views, valid_len, prefix_len
+    )
+    flash_decode_attention_shared_prefix_q8_stacked.launches += 1
+    return out
+
+
+flash_decode_attention_shared_prefix_q8_stacked.launches = 0

@@ -1,8 +1,9 @@
 // Shared helpers for the port's hand-written Hopper kernels.
 //
-// Every kernel takes float32 or bfloat16 tensors (the `dtype` code the
-// Python wrappers pass: 0 = float32, 1 = bfloat16), computes in float32,
-// and writes its output in the input's type. The C entry points return
+// Every kernel takes float32 or bfloat16 activations (the `dtype` code the
+// Python wrappers pass: 0 = float32, 1 = bfloat16), beside int8 weights or
+// an int8 KV cache where it is quantized, computes in float32, and writes
+// its output in the activations' type (or the type the caller asks for). The C entry points return
 // cudaGetLastError() after the launch, so a refused launch is reported to
 // the wrapper, which raises.
 #pragma once
@@ -10,6 +11,7 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
 
 #define LCT_DTYPE_F32 0
 #define LCT_DTYPE_BF16 1
@@ -17,6 +19,9 @@
 __device__ __forceinline__ float lct_to_float(float x) { return x; }
 __device__ __forceinline__ float lct_to_float(__nv_bfloat16 x) {
   return __bfloat162float(x);
+}
+__device__ __forceinline__ float lct_to_float(int8_t x) {
+  return static_cast<float>(x);  // exact
 }
 
 template <typename T>

@@ -1,5 +1,6 @@
-// K3 and K7: one-token decode attention over the dense KV cache, plain and
-// with a prefix shared by every row.
+// K3, K4, K7 and K7-q8: one-token decode attention over the KV cache,
+// plain and with a prefix shared by every row, over the dense cache or
+// over the int8 cache.
 //
 // K3 replaces the Pallas kernel llm_consensus_tpu/ops/pallas/attention.py
 // (flash_decode_attention -> _decode_kernel). Same semantics: query head h
@@ -13,32 +14,53 @@
 // prefix is read once for all rows, each row reads only its own slots
 // [prefix_len, valid_len), and the partial softmaxes merge by log-sum-exp.
 //
+// K4 replaces flash_decode_attention_q8 (-> _decode_q8_row_kernel and
+// _decode_q8_kernel, whose arithmetic is _q8_attend) and K7-q8 replaces
+// flash_decode_attention_shared_prefix_q8 (through _ragged_attention, the
+// scale fold of _online_fold). The int8 cache is head-major, [B, Hkv,
+// S_max, D] int8 with a float32 scale per slot [B, Hkv, S_max]. As there,
+// the scales fold into the scores (q . k_q times k_scale * d^-1/2) and into
+// the value product only (p * v_scale); the softmax denominator stays the
+// true sum of p. The _stacked forms of both (K5 and K7-q8-stacked) exist in
+// the JAX package because a Pallas operand must be a whole buffer; here
+// they are these kernels launched on a layer's views. Pallas' choice
+// between a row program and a per-head program (_ROW_KERNEL_MAX_KV_BYTES)
+// is a VMEM budget, not semantics, and has no counterpart here.
+//
+// One code serves both caches: the kernels are templates on the cache
+// type (Dense<T>: token-major [B, S_max, Hkv, D] of T, no scales; Q8:
+// head-major int8 with a scale per slot), which says where a slot's row
+// lies and how a lane reads its share of that row.
+//
 // What bounds them on the card: bytes. K3 reads each row's valid K/V slots
 // (2 * valid_len * Hkv * D elements per row) and does ~4 * G operations per
 // element read, far below ~295 operations per byte. K7 reads the prefix
 // once instead of B times: 2 * (prefix + B * suffix) * Hkv * D elements,
 // with ~4 * B * G operations per prefix element, still bytes-bound while
-// B * G is below a few hundred.
+// B * G is below a few hundred. The int8 forms read D + 4 bytes per slot
+// and head instead of 2 * D: half the bf16 cache's bytes at D = 128.
 //
-// Design of the row kernel (K3, and K7's suffix-and-merge pass). One block
-// per (batch row, kv head); its 8 warps split the row's slots [lo,
-// valid_len) round-robin, so only those are read from device memory. A warp
-// reads one slot's K and V row per step (lane i holds dimensions i, i + 32,
-// ...: each load is one contiguous row segment) and serves all G query heads
-// of the KV head from that one read, keeping an online-softmax state (max,
-// sum, output slice) per head in registers; it loads its next slot while
-// working on the current one. The warps' partial states, and
+// Design of the row kernel (K3, K4, and K7's suffix-and-merge pass). One
+// block per (batch row, kv head); its 8 warps split the row's slots [lo,
+// valid_len) round-robin, so only those are read from device memory. A
+// warp reads one slot's K and V row per step (dense: lane i holds
+// dimensions i, i + 32, ...; int8: lane i holds dimensions 4i .. 4i + 3 at
+// D = 128, one 4-byte load, and the slot's two scales) and serves all G
+// query heads of the KV head from that one read, keeping an online-softmax
+// state (max, sum, output slice) per head in registers; it loads its next
+// slot while working on the current one. The warps' partial states, and
 // for K7 the prefix partials, are merged by log-sum-exp at the end.
 //
 // Design of K7's prefix pass. One block per (kv head, tile of 16 queries,
 // 64-slot split of the prefix). The block stages row 0's prefix K/V for the
 // split in shared memory, 32 slots at a time (16-byte loads, the next
-// chunk in flight while the current one is used), and each warp runs 2 of
-// the tile's (row, head) queries over the staged slots: one lane per slot
-// for the scores, one softmax update per chunk, then the weighted sum of
-// V. The split's (max, sum, output) per query goes to a float32 workspace
-// that the row kernel merges. Split-KV for K3 (small batches on
-// 132 SMs) and tensor-core score tiles for K7's prefix are later work.
+// chunk in flight while the current one is used; for int8 also the chunk's
+// 32 scale pairs), and each warp runs 2 of the tile's (row, head) queries
+// over the staged slots: one lane per slot for the scores, one softmax
+// update per chunk, then the weighted sum of V. The split's (max, sum,
+// output) per query goes to a float32 workspace that the row kernel
+// merges. Split-KV for K3 and K4 (small batches on 132 SMs) and
+// tensor-core score tiles for K7's prefix are later work.
 
 #include "common.cuh"
 
@@ -54,29 +76,94 @@ struct RowArgs {
   const void* q;
   const void* k;
   const void* v;
+  const float* ks;  // int8 cache: [B, Hkv, S_max] scales; else null
+  const float* vs;
   const int* valid_len;
   void* out;
   int b, s_max, hkv;
   float scale;
   int lo;  // first slot the row kernel reads (0, or K7's prefix length)
   // K7's prefix partials, [n_split, B, H] and [n_split, B, H, D] float32;
-  // n_split = 0 for K3.
+  // n_split = 0 for K3 and K4.
   const float* pm;
   const float* pl;
   const float* pacc;
   int n_split;
 };
 
-template <typename T, int D, int G>
+// The dense cache: [B, S_max, Hkv, D] of T. Lane `lane` holds dimensions
+// lane, lane + 32, ... of a slot's row.
+template <typename T>
+struct Dense {
+  using Elem = T;
+  static constexpr bool kScaled = false;
+  // Index of the D-element row of (batch row b, kv head kvh, slot).
+  __device__ static size_t row(const RowArgs& a, int b, int kvh, int slot) {
+    return ((size_t)b * a.s_max + slot) * a.hkv + kvh;
+  }
+  template <int D>
+  __device__ static int dim(int e, int lane) {
+    return e * 32 + lane;
+  }
+  template <int D>
+  __device__ static void load(const T* p, int lane, T* r) {
+#pragma unroll
+    for (int e = 0; e < (D + 31) / 32; ++e) {
+      const int d = e * 32 + lane;
+      r[e] = d < D ? p[d] : lct_from_float<T>(0.f);
+    }
+  }
+};
+
+// The int8 cache: head-major [B, Hkv, S_max, D] int8, its scales [B, Hkv,
+// S_max] at the same row index. Lane `lane` holds the kDPL neighbouring
+// dimensions from lane * kDPL, read as one kDPL-byte load.
+struct Q8 {
+  using Elem = int8_t;
+  static constexpr bool kScaled = true;
+  __device__ static size_t row(const RowArgs& a, int b, int kvh, int slot) {
+    return ((size_t)b * a.hkv + kvh) * a.s_max + slot;
+  }
+  template <int D>
+  __device__ static int dim(int e, int lane) {
+    return lane * ((D + 31) / 32) + e;
+  }
+  template <int D>
+  __device__ static void load(const int8_t* p, int lane, int8_t* r) {
+    constexpr int kDPL = (D + 31) / 32;
+    const int d0 = lane * kDPL;
+    if (d0 >= D) {  // D = 16: lanes 16..31 hold nothing
+#pragma unroll
+      for (int e = 0; e < kDPL; ++e) r[e] = 0;
+      return;
+    }
+    if constexpr (kDPL == 4) {
+      const char4 c = *reinterpret_cast<const char4*>(p + d0);
+      r[0] = c.x;
+      r[1] = c.y;
+      r[2] = c.z;
+      r[3] = c.w;
+    } else if constexpr (kDPL == 2) {
+      const char2 c = *reinterpret_cast<const char2*>(p + d0);
+      r[0] = c.x;
+      r[1] = c.y;
+    } else {
+      r[0] = p[d0];
+    }
+  }
+};
+
+template <typename Cache, typename T, int D, int G>
 __global__ void __launch_bounds__(kWarps * 32) decode_row_kernel(RowArgs a) {
+  using E = typename Cache::Elem;
   constexpr int kDPL = (D + 31) / 32;  // dims per lane
   __shared__ float sm_m[kWarps][G];
   __shared__ float sm_l[kWarps][G];
   __shared__ float sm_acc[kWarps][G][D];
 
   const T* __restrict__ q = static_cast<const T*>(a.q);
-  const T* __restrict__ k = static_cast<const T*>(a.k);
-  const T* __restrict__ v = static_cast<const T*>(a.v);
+  const E* __restrict__ k = static_cast<const E*>(a.k);
+  const E* __restrict__ v = static_cast<const E*>(a.v);
   const int b = blockIdx.y, kvh = blockIdx.x, hkv = a.hkv;
   const int h = hkv * G;
   const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
@@ -88,7 +175,7 @@ __global__ void __launch_bounds__(kWarps * 32) decode_row_kernel(RowArgs a) {
     const size_t q_off = ((size_t)b * h + kvh * G + g) * D;
 #pragma unroll
     for (int e = 0; e < kDPL; ++e) {
-      const int d = e * 32 + lane;
+      const int d = Cache::template dim<D>(e, lane);
       qr[g][e] = d < D ? lct_to_float(q[q_off + d]) * a.scale : 0.f;
       acc[g][e] = 0.f;
     }
@@ -96,16 +183,18 @@ __global__ void __launch_bounds__(kWarps * 32) decode_row_kernel(RowArgs a) {
     l[g] = 0.f;
   }
 
-  // Each warp loads its next slot's K/V row before working on the
-  // current one, so a device-memory round trip overlaps the math.
-  T kn[kDPL], vn[kDPL];
+  // Each warp loads its next slot's K/V row (and, int8, its scales)
+  // before working on the current one, so a device-memory round trip
+  // overlaps the math.
+  E kn[kDPL], vn[kDPL];
+  float ksn = 1.f, vsn = 1.f;
   auto load = [&](int slot) {
-    const size_t off = (((size_t)b * a.s_max + slot) * hkv + kvh) * D;
-#pragma unroll
-    for (int e = 0; e < kDPL; ++e) {
-      const int d = e * 32 + lane;
-      kn[e] = d < D ? k[off + d] : lct_from_float<T>(0.f);
-      vn[e] = d < D ? v[off + d] : lct_from_float<T>(0.f);
+    const size_t r = Cache::row(a, b, kvh, slot);
+    Cache::template load<D>(k + r * D, lane, kn);
+    Cache::template load<D>(v + r * D, lane, vn);
+    if constexpr (Cache::kScaled) {
+      ksn = a.ks[r];
+      vsn = a.vs[r];
     }
   };
   if (a.lo + warp < n) load(a.lo + warp);
@@ -116,6 +205,7 @@ __global__ void __launch_bounds__(kWarps * 32) decode_row_kernel(RowArgs a) {
       kr[e] = lct_to_float(kn[e]);
       vr[e] = lct_to_float(vn[e]);
     }
+    const float ks = ksn, vs = vsn;
     if (slot + kWarps < n) load(slot + kWarps);
 #pragma unroll
     for (int g = 0; g < G; ++g) {
@@ -123,12 +213,15 @@ __global__ void __launch_bounds__(kWarps * 32) decode_row_kernel(RowArgs a) {
 #pragma unroll
       for (int e = 0; e < kDPL; ++e) sc += qr[g][e] * kr[e];
       sc = lct_group_sum<32>(sc);
+      if constexpr (Cache::kScaled) sc *= ks;
       const float m_new = fmaxf(m[g], sc);
       const float alpha = (m[g] == -INFINITY) ? 0.f : expf(m[g] - m_new);
       const float p = expf(sc - m_new);
       l[g] = l[g] * alpha + p;
+      float pv = p;
+      if constexpr (Cache::kScaled) pv *= vs;
 #pragma unroll
-      for (int e = 0; e < kDPL; ++e) acc[g][e] = acc[g][e] * alpha + p * vr[e];
+      for (int e = 0; e < kDPL; ++e) acc[g][e] = acc[g][e] * alpha + pv * vr[e];
       m[g] = m_new;
     }
   }
@@ -141,7 +234,7 @@ __global__ void __launch_bounds__(kWarps * 32) decode_row_kernel(RowArgs a) {
     }
 #pragma unroll
     for (int e = 0; e < kDPL; ++e) {
-      const int d = e * 32 + lane;
+      const int d = Cache::template dim<D>(e, lane);
       if (d < D) sm_acc[warp][g][d] = acc[g][e];
     }
   }
@@ -177,7 +270,8 @@ __global__ void __launch_bounds__(kWarps * 32) decode_row_kernel(RowArgs a) {
   }
 }
 
-// The 16 bytes of a staged vector as floats (4 float32 or 8 bfloat16).
+// The 16 bytes of a staged vector as floats (4 float32, 8 bfloat16 or 16
+// int8).
 template <typename T>
 __device__ __forceinline__ void unpack16(const uint4& r, float* f);
 template <>
@@ -196,6 +290,17 @@ __device__ __forceinline__ void unpack16<__nv_bfloat16>(const uint4& r,
     const float2 t = __bfloat1622float2(p[u]);
     f[2 * u] = t.x;
     f[2 * u + 1] = t.y;
+  }
+}
+template <>
+__device__ __forceinline__ void unpack16<int8_t>(const uint4& r, float* f) {
+  const char4* p = reinterpret_cast<const char4*>(&r);
+#pragma unroll
+  for (int u = 0; u < 4; ++u) {
+    f[4 * u] = p[u].x;
+    f[4 * u + 1] = p[u].y;
+    f[4 * u + 2] = p[u].z;
+    f[4 * u + 3] = p[u].w;
   }
 }
 
@@ -217,26 +322,29 @@ __device__ __forceinline__ float warp_max(float v) {
 // online-softmax update per slot; the probabilities are then broadcast by
 // shuffle for the weighted sum of V, where lane i holds dimensions i, i +
 // 32, ...
-template <typename T, int D>
+template <typename Cache, typename T, int D>
 __global__ void __launch_bounds__(kWarps * 32)
-    prefix_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                  const T* __restrict__ v, float* __restrict__ pm,
-                  float* __restrict__ pl, float* __restrict__ pacc, int b_rows,
-                  int hkv, int g_size, int prefix_len, float scale) {
+    prefix_kernel(RowArgs a, int g_size, int prefix_len, float* __restrict__ pm,
+                  float* __restrict__ pl, float* __restrict__ pacc) {
+  using E = typename Cache::Elem;
   constexpr int kDPL = (D + 31) / 32;
-  // A slot's K (or V) row of one kv head is D * sizeof(T) contiguous
+  // A slot's K (or V) row of one kv head is D * sizeof(E) contiguous
   // bytes, moved as 16-byte vectors. K rows are padded by one vector so
   // that 32 lanes reading 32 rows hit distinct banks.
-  constexpr int kElemPerVec = 16 / (int)sizeof(T);
+  constexpr int kElemPerVec = 16 / (int)sizeof(E);
   constexpr int kVecPerRow = D / kElemPerVec;
   constexpr int kVecPerThread =
       (kChunk * kVecPerRow + kWarps * 32 - 1) / (kWarps * 32);
-  __shared__ __align__(16) T sk[kChunk][D + kElemPerVec];
-  __shared__ __align__(16) T sv[kChunk][D];
+  __shared__ __align__(16) E sk[kChunk][D + kElemPerVec];
+  __shared__ __align__(16) E sv[kChunk][D];
+  __shared__ float sks[kChunk], svs[kChunk];  // int8 cache: the chunk's scales
   __shared__ __align__(16) float sq[kWarps][kQPerWarp][D];
 
+  const T* __restrict__ q = static_cast<const T*>(a.q);
+  const E* __restrict__ k = static_cast<const E*>(a.k);
+  const E* __restrict__ v = static_cast<const E*>(a.v);
   const int kvh = blockIdx.x, split = blockIdx.z;
-  const int h = hkv * g_size, nq = b_rows * g_size;
+  const int b_rows = a.b, h = a.hkv * g_size, nq = b_rows * g_size;
   const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
   const int lo = split * kSplit, hi = min(prefix_len, lo + kSplit);
   const int j0 = blockIdx.y * kQPerBlock + warp * kQPerWarp;
@@ -250,7 +358,7 @@ __global__ void __launch_bounds__(kWarps * 32)
     const size_t q_off =
         ((size_t)(j / g_size) * h + kvh * g_size + j % g_size) * D;
     for (int d = lane; d < D; d += 32) {
-      sq[warp][i][d] = j < nq ? lct_to_float(q[q_off + d]) * scale : 0.f;
+      sq[warp][i][d] = j < nq ? lct_to_float(q[q_off + d]) * a.scale : 0.f;
     }
 #pragma unroll
     for (int e = 0; e < kDPL; ++e) acc[i][e] = 0.f;
@@ -262,15 +370,24 @@ __global__ void __launch_bounds__(kWarps * 32)
   // The next chunk is loaded into registers (every load issued before any
   // is used) while the current one is worked on from shared memory.
   uint4 kbuf[kVecPerThread], vbuf[kVecPerThread];
+  float ksb = 0.f, vsb = 0.f;  // int8: thread t < kChunk holds slot t's scales
   auto load = [&](int c0) {
 #pragma unroll
     for (int r = 0; r < kVecPerThread; ++r) {
       const int idx = threadIdx.x + r * kWarps * 32;
       const int s = idx / kVecPerRow, c = idx % kVecPerRow;
       if (s < kChunk && c0 + s < hi) {
-        const size_t off = ((size_t)(c0 + s) * hkv + kvh) * D;  // row 0
+        const size_t off = Cache::row(a, 0, kvh, c0 + s) * D;  // row 0
         kbuf[r] = reinterpret_cast<const uint4*>(k + off)[c];
         vbuf[r] = reinterpret_cast<const uint4*>(v + off)[c];
+      }
+    }
+    if constexpr (Cache::kScaled) {
+      const int s = threadIdx.x;
+      if (s < kChunk && c0 + s < hi) {
+        const size_t r = Cache::row(a, 0, kvh, c0 + s);
+        ksb = a.ks[r];
+        vsb = a.vs[r];
       }
     }
   };
@@ -287,6 +404,12 @@ __global__ void __launch_bounds__(kWarps * 32)
         reinterpret_cast<uint4*>(sv[s])[c] = vbuf[r];
       }
     }
+    if constexpr (Cache::kScaled) {
+      if (threadIdx.x < nc) {
+        sks[threadIdx.x] = ksb;
+        svs[threadIdx.x] = vsb;
+      }
+    }
     __syncthreads();
     if (c0 + kChunk < hi) load(c0 + kChunk);
     if (j0 >= nq) continue;  // this warp has no query (it still syncs)
@@ -299,7 +422,7 @@ __global__ void __launch_bounds__(kWarps * 32)
 #pragma unroll 4
       for (int c = 0; c < kVecPerRow; ++c) {
         float kf[kElemPerVec];
-        unpack16<T>(krow[c], kf);
+        unpack16<E>(krow[c], kf);
 #pragma unroll
         for (int i = 0; i < kQPerWarp; ++i) {
           const float4* qv =
@@ -311,6 +434,10 @@ __global__ void __launch_bounds__(kWarps * 32)
                      qq.z * kf[4 * u + 2] + qq.w * kf[4 * u + 3];
           }
         }
+      }
+      if constexpr (Cache::kScaled) {
+#pragma unroll
+        for (int i = 0; i < kQPerWarp; ++i) sc[i] *= sks[lane];
       }
     }
     float p[kQPerWarp];
@@ -334,7 +461,8 @@ __global__ void __launch_bounds__(kWarps * 32)
       }
 #pragma unroll
       for (int i = 0; i < kQPerWarp; ++i) {
-        const float ps = __shfl_sync(0xffffffffu, p[i], s);
+        float ps = __shfl_sync(0xffffffffu, p[i], s);
+        if constexpr (Cache::kScaled) ps *= svs[s];
 #pragma unroll
         for (int e = 0; e < kDPL; ++e) acc[i][e] += ps * vr[e];
       }
@@ -362,60 +490,76 @@ __global__ void __launch_bounds__(kWarps * 32)
   }
 }
 
-template <typename T, int D>
+template <typename Cache, typename T, int D>
 int launch_rows(const RowArgs& a, int g, cudaStream_t st) {
   dim3 grid(a.hkv, a.b);
   switch (g) {
-    case 1: decode_row_kernel<T, D, 1><<<grid, kWarps * 32, 0, st>>>(a); break;
-    case 2: decode_row_kernel<T, D, 2><<<grid, kWarps * 32, 0, st>>>(a); break;
-    case 4: decode_row_kernel<T, D, 4><<<grid, kWarps * 32, 0, st>>>(a); break;
-    case 8: decode_row_kernel<T, D, 8><<<grid, kWarps * 32, 0, st>>>(a); break;
+    case 1: decode_row_kernel<Cache, T, D, 1><<<grid, kWarps * 32, 0, st>>>(a); break;
+    case 2: decode_row_kernel<Cache, T, D, 2><<<grid, kWarps * 32, 0, st>>>(a); break;
+    case 4: decode_row_kernel<Cache, T, D, 4><<<grid, kWarps * 32, 0, st>>>(a); break;
+    case 8: decode_row_kernel<Cache, T, D, 8><<<grid, kWarps * 32, 0, st>>>(a); break;
     default: return (int)cudaErrorInvalidValue;
   }
   return 0;
 }
 
-template <typename T, int D>
+template <typename Cache, typename T, int D>
 int launch_d(const RowArgs& a, int g, int prefix_len, float* ws,
              cudaStream_t st) {
   if (a.n_split > 0) {
     const size_t bh = (size_t)a.b * a.hkv * g;
     dim3 grid(a.hkv, (a.b * g + kQPerBlock - 1) / kQPerBlock, a.n_split);
-    prefix_kernel<T, D><<<grid, kWarps * 32, 0, st>>>(
-        static_cast<const T*>(a.q), static_cast<const T*>(a.k),
-        static_cast<const T*>(a.v), ws, ws + a.n_split * bh,
-        ws + 2 * a.n_split * bh, a.b, a.hkv, g, prefix_len, a.scale);
+    prefix_kernel<Cache, T, D><<<grid, kWarps * 32, 0, st>>>(
+        a, g, prefix_len, ws, ws + a.n_split * bh, ws + 2 * a.n_split * bh);
   }
-  return launch_rows<T, D>(a, g, st);
+  return launch_rows<Cache, T, D>(a, g, st);
 }
 
-template <typename T>
+template <typename Cache, typename T>
 int dispatch_d(const RowArgs& a, int g, int d, int prefix_len, float* ws,
                cudaStream_t st) {
   switch (d) {
-    case 16: return launch_d<T, 16>(a, g, prefix_len, ws, st);
-    case 32: return launch_d<T, 32>(a, g, prefix_len, ws, st);
-    case 64: return launch_d<T, 64>(a, g, prefix_len, ws, st);
-    case 128: return launch_d<T, 128>(a, g, prefix_len, ws, st);
+    case 16: return launch_d<Cache, T, 16>(a, g, prefix_len, ws, st);
+    case 32: return launch_d<Cache, T, 32>(a, g, prefix_len, ws, st);
+    case 64: return launch_d<Cache, T, 64>(a, g, prefix_len, ws, st);
+    case 128: return launch_d<Cache, T, 128>(a, g, prefix_len, ws, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
-int run(RowArgs a, int h, int d, int dtype, int prefix_len, float* ws,
-        void* stream) {
+// q8: the int8 head-major cache (a.ks / a.vs set); else the dense cache in
+// q's type.
+int run(RowArgs a, bool q8, int h, int d, int dtype, int prefix_len,
+        float* ws, void* stream) {
   if (a.b <= 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int g = h / a.hkv;
   int rc;
   if (dtype == LCT_DTYPE_F32) {
-    rc = dispatch_d<float>(a, g, d, prefix_len, ws, st);
+    rc = q8 ? dispatch_d<Q8, float>(a, g, d, prefix_len, ws, st)
+            : dispatch_d<Dense<float>, float>(a, g, d, prefix_len, ws, st);
   } else if (dtype == LCT_DTYPE_BF16) {
-    rc = dispatch_d<__nv_bfloat16>(a, g, d, prefix_len, ws, st);
+    rc = q8 ? dispatch_d<Q8, __nv_bfloat16>(a, g, d, prefix_len, ws, st)
+            : dispatch_d<Dense<__nv_bfloat16>, __nv_bfloat16>(a, g, d,
+                                                               prefix_len, ws, st);
   } else {
     rc = (int)cudaErrorInvalidValue;
   }
   if (rc) return rc;
   return (int)cudaGetLastError();
+}
+
+RowArgs row_args(const void* q, const void* k, const void* v, const void* ks,
+                 const void* vs, const void* valid_len, void* out, int b,
+                 int s_max, int hkv, float scale, int prefix_len, float* ws,
+                 int h) {
+  const int n_split = (prefix_len + kSplit - 1) / kSplit;
+  const size_t bh = (size_t)b * h;
+  return RowArgs{q, k, v, static_cast<const float*>(ks),
+                 static_cast<const float*>(vs),
+                 static_cast<const int*>(valid_len), out, b, s_max, hkv,
+                 scale, prefix_len, ws, ws ? ws + n_split * bh : nullptr,
+                 ws ? ws + 2 * n_split * bh : nullptr, n_split};
 }
 
 }  // namespace
@@ -427,9 +571,9 @@ extern "C" int lct_decode_attention(const void* q, const void* k,
                                     void* out, int b, int s_max, int h,
                                     int hkv, int d, float scale, int dtype,
                                     void* stream) {
-  RowArgs a{q, k, v, static_cast<const int*>(valid_len), out, b, s_max, hkv,
-            scale, 0, nullptr, nullptr, nullptr, 0};
-  return run(a, h, d, dtype, 0, nullptr, stream);
+  const RowArgs a = row_args(q, k, v, nullptr, nullptr, valid_len, out, b,
+                             s_max, hkv, scale, 0, nullptr, h);
+  return run(a, false, h, d, dtype, 0, nullptr, stream);
 }
 
 // K7. As K3, plus prefix_len (0 <= prefix_len <= S_max: slots below it are
@@ -442,11 +586,35 @@ extern "C" int lct_shared_prefix_attention(const void* q, const void* k,
                                            int hkv, int d, int prefix_len,
                                            float scale, int dtype,
                                            void* stream) {
-  const int n_split = (prefix_len + kSplit - 1) / kSplit;
   float* w = static_cast<float*>(ws);
-  const size_t bh = (size_t)b * h;
-  RowArgs a{q, k, v, static_cast<const int*>(valid_len), out, b, s_max, hkv,
-            scale, prefix_len, w, w + n_split * bh, w + 2 * n_split * bh,
-            n_split};
-  return run(a, h, d, dtype, prefix_len, w, stream);
+  const RowArgs a = row_args(q, k, v, nullptr, nullptr, valid_len, out, b,
+                             s_max, hkv, scale, prefix_len, w, h);
+  return run(a, false, h, d, dtype, prefix_len, w, stream);
+}
+
+// K4. q: [B, 1, H, D] float32 or bfloat16; k_q, v_q: [B, Hkv, S_max, D]
+// int8; k_scale, v_scale: [B, Hkv, S_max] float32; valid_len: [B] int32;
+// out: [B, 1, H, D] in q's type; all contiguous on the card.
+extern "C" int lct_decode_attention_q8(const void* q, const void* k_q,
+                                       const void* k_scale, const void* v_q,
+                                       const void* v_scale,
+                                       const void* valid_len, void* out,
+                                       int b, int s_max, int h, int hkv,
+                                       int d, float scale, int dtype,
+                                       void* stream) {
+  const RowArgs a = row_args(q, k_q, v_q, k_scale, v_scale, valid_len, out,
+                             b, s_max, hkv, scale, 0, nullptr, h);
+  return run(a, true, h, d, dtype, 0, nullptr, stream);
+}
+
+// K7-q8. As K4, plus prefix_len and the workspace ws, as K7.
+extern "C" int lct_shared_prefix_attention_q8(
+    const void* q, const void* k_q, const void* k_scale, const void* v_q,
+    const void* v_scale, const void* valid_len, void* out, void* ws, int b,
+    int s_max, int h, int hkv, int d, int prefix_len, float scale, int dtype,
+    void* stream) {
+  float* w = static_cast<float*>(ws);
+  const RowArgs a = row_args(q, k_q, v_q, k_scale, v_scale, valid_len, out,
+                             b, s_max, hkv, scale, prefix_len, w, h);
+  return run(a, true, h, d, dtype, prefix_len, w, stream);
 }

@@ -17,3 +17,11 @@ def resolve_device(device: str | torch.device | None = None) -> torch.device:
             "no CUDA device: pass device='cpu' to run on the CPU"
         )
     return dev
+
+
+def to_device(node, device: torch.device):
+    """A parameter tree (nested dicts of tensors or quantized leaves,
+    anything with ``.to``) moved to ``device``."""
+    if isinstance(node, dict):
+        return {k: to_device(v, device) for k, v in node.items()}
+    return node.to(device)

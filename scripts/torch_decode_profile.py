@@ -1,8 +1,10 @@
 #!/usr/bin/env python3
 """Where the port's generate time goes on the card: device busy share and
-device time by kernel, for llama-1b in bf16 (random weights, seed 0).
+device time by kernel, for llama-1b (random weights, seed 0) in bf16, or
+with ``--int8`` on the int8 path (weights quantized at engine init, int8
+KV cache).
 
-    python3 scripts/torch_decode_profile.py [--n 64] [--new-tokens 32]
+    python3 scripts/torch_decode_profile.py [--n 64] [--new-tokens 32] [--int8]
 
 Runs ``InferenceEngine.generate_texts`` on N copies of
 ``chip_smoke.SC_PROMPT`` (the self-consistency fan-out of
@@ -40,6 +42,8 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--n", type=int, default=64)
     ap.add_argument("--new-tokens", type=int, default=32)
+    ap.add_argument("--int8", action="store_true",
+                    help="int8 weights and an int8 KV cache")
     args = ap.parse_args()
 
     import torch
@@ -51,7 +55,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("needs a CUDA card", file=sys.stderr)
         return 1
-    engine = build_engine(torch, get_config("llama-1b"), args.new_tokens)
+    quant = dict(quant="int8", kv_quant=True) if args.int8 else {}
+    engine = build_engine(torch, get_config("llama-1b"), args.new_tokens, **quant)
     prompts = [SC_PROMPT] * args.n
     temps = [0.7] * args.n
 
@@ -75,6 +80,7 @@ def main() -> int:
     steps = args.new_tokens  # one prefill + (new_tokens - 1) decode steps
     print(json.dumps({
         "card": torch.cuda.get_device_name(0),
+        "path": "int8" if args.int8 else "bf16",
         "n": args.n,
         "new_tokens": args.new_tokens,
         "generated_tokens": sum(r.num_tokens for r in out),

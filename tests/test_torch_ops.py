@@ -36,6 +36,7 @@ from llm_consensus_tpu_torch.ops import activations, attention, norms, rope
 from llm_consensus_tpu_torch.ops import kernels
 from llm_consensus_tpu_torch.ops.kernels import attention as ka
 from llm_consensus_tpu_torch.ops.kernels import norms as kn
+from llm_consensus_tpu_torch.ops.kernels import quant_matmul as kq
 
 F32_TOL = dict(rtol=2e-5, atol=2e-5)
 BF16_TOL = dict(rtol=2.0**-8, atol=2.0**-8)
@@ -276,13 +277,23 @@ def test_cpu_twin_path_counts_no_launch():
     ka.flash_decode_attention(q[:, :1], q, q, torch.tensor([4], dtype=torch.int32))
     ka.flash_decode_attention_shared_prefix(
         q[:, :1], q, q, torch.tensor([4], dtype=torch.int32), 2)
-    assert [fn.launches for fn in kernels.KERNELS] == [0, 0, 0, 0]
+    kq8, ks = torch.zeros(1, 2, 4, 16, dtype=torch.int8), torch.ones(1, 2, 4)
+    vl = torch.tensor([4], dtype=torch.int32)
+    ka.flash_decode_attention_q8(q[:, :1], kq8, ks, kq8, ks, vl)
+    ka.flash_decode_attention_q8_stacked(q[:, :1], kq8[None], ks[None], kq8[None], ks[None], vl, 0)
+    ka.flash_decode_attention_shared_prefix_q8(q[:, :1], kq8, ks, kq8, ks, vl, 2)
+    ka.flash_decode_attention_shared_prefix_q8_stacked(
+        q[:, :1], kq8[None], ks[None], kq8[None], ks[None], vl, 2, 0)
+    kq.quant_matmul_2d(torch.ones(2, 128), torch.ones(128, 128, dtype=torch.int8),
+                       torch.ones(1, 128))
+    assert len(kernels.KERNELS) == 9
+    assert [fn.launches for fn in kernels.KERNELS] == [0] * len(kernels.KERNELS)
 
 
 def test_every_kernel_has_a_cuda_source():
     csrc = ROOT / "llm_consensus_tpu_torch/ops/kernels/csrc"
     assert {p.name for p in csrc.glob("*.cu")} == {
-        "rms_norm.cu", "causal_attention.cu", "decode_attention.cu"
+        "rms_norm.cu", "causal_attention.cu", "decode_attention.cu", "quant_matmul.cu"
     }
 
 
