@@ -15,14 +15,19 @@ nothing of JAX or of the JAX package. Phases:
    shapes (B in {1, 8}, prompt buckets 128 and 256, cache length prompt
    + 128; K6 at M = B on the w_gate shape), bf16 and fp32, plus the main
    path's own largest shapes in ``MAIN_PATH_CASES`` and K6 at every
-   llama-1b projection shape in ``K6_CASES``, also in both types. K7 is
+   llama-1b projection shape for the engine's and the serving path's M
+   (``k6_cases``), also in both types. K7 is
    also held against K3, and K7-q8 against K4, on the same cache. Print
    the max abs error and the worst ratio of error to tolerance, the
    kernel's time, the twin's time, one PyTorch call computing the same
    function (``library_ms``: F.rms_norm, scaled_dot_product_attention on
    the cache dequantized ahead of time, the bf16 cuBLAS product on the
    weight dequantized ahead of time) and the bound (the least time the
-   card could take for the same work).
+   card could take for the same work). K8 (ragged paged attention) on
+   the cases of ``K8_CASES`` at llama-1b serving shapes (page 64, 32
+   pages a table): bf16, float32, and float32 queries over a bf16 pool;
+   its fused case timed against the twin and two SDPA calls on K/V
+   gathered out of the pool ahead of time.
 3. The main path, part one: llama-1b at full width and depth, random
    weights from a fixed seed, answers one question through Coordinator
    -> LocalBackend -> InferenceEngine (default panel, round cap 2, 64 new
@@ -36,6 +41,14 @@ nothing of JAX or of the JAX package. Phases:
    step. The kernels' launch counts are set to 0 just before each path's
    phase 3 and read just after its phase 4; each kernel of that path must
    be > 0.
+3s, 4s. The serving path: llama-1b, bf16 weights, a ContinuousBatcher
+   with ``ContinuousConfig(max_slots=SERVE_SLOTS)`` (16): one consensus question
+   through ContinuousBackend, then a 32-request burst (4 groups of 8
+   sharing a 300-token header; ``serving burst:`` prints requests/s,
+   generated tokens/s, wall ms per scheduler iteration, device programs
+   per iteration, prefix pages shared and copied, mean decode-group
+   size); then 8 requests on int8 weights. K1 and K8 (and K6 on int8)
+   must launch in each run.
 5. Reference check on the card: llama-1b's widths cut to 2 layers, in
    float32, kernels path against the plain path (prefill and decode
    logits, greedy tokens), for two ragged prompts and for a 4-row
@@ -43,12 +56,16 @@ nothing of JAX or of the JAX package. Phases:
    then the same on int8 weights and the int8 cache, the plain path with
    ``ops.quant.set_kernel_enabled(False)``, once with
    ``set_stacked_decode(False)`` and once with ``True`` (K5 and
-   K7-q8-stacked count their launches there); and finite outputs of
-   phases 3 and 4.
+   K7-q8-stacked count their launches there); the paged steps on the
+   same cache (float32 pool, 16 rows as in phase 4s; float32 weights,
+   then int8 weights with K6 against the dequantized product) and the
+   greedy serving burst over the batcher's bf16 pool,
+   kernels against plain, at pipeline depth 1 and 2 with the fused step
+   on and off; and finite outputs of phases 3 and 4.
 
-Any failure raises (exit code != 0). The last three lines are the
-``kernels`` JSON, the card's ``nvidia-smi`` name and power limit, and
-``{"ok": true, "device": {...}}``.
+Any failure raises (exit code != 0). The last four lines are the
+``serving`` JSON, the ``kernels`` JSON, the card's ``nvidia-smi`` name
+and power limit, and ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -158,19 +175,32 @@ MAIN_PATH_CASES = (
     ("flash_decode_attention_q8", 4, 2048),
     ("flash_decode_attention_shared_prefix_q8", 64, 128),
 )
-# K6 at every llama-1b projection shape (K, N, out type; wq/wo, wk/wv,
-# w_gate/w_up, w_down, the lm_head with float32 logits) for the main
-# path's M: the question (1), the panel (4), the N=64 fan-out's decode
-# (64) and a one-prompt prefill of the 128 bucket (128).
-K6_CASES = tuple(
-    (m, k, n, out)
-    for m in (1, 4, 64, 128)
-    for k, n, out in ((2048, 2048, None), (2048, 512, None), (2048, 5632, None),
-                      (5632, 2048, None), (2048, 32000, "float32"))
-)
+# The serving phases' batcher: ContinuousConfig(max_slots=SERVE_SLOTS).
+SERVE_SLOTS = 16
+
+
+def k6_cases():
+    """K6 at every llama-1b projection shape (K, N, out type; wq/wo,
+    wk/wv, w_gate/w_up, w_down, the lm_head with float32 logits) for the
+    engine paths' M: the question (1), the panel (4), the N=64 fan-out's
+    decode (64) and a one-prompt prefill of the 128 bucket (128); and for
+    the serving path's, from its ContinuousConfig: a decode step of
+    max_slots rows, a standalone chunk of prefill_chunk rows, a fused
+    step of both."""
+    from llm_consensus_tpu_torch.serving import ContinuousConfig
+
+    c = ContinuousConfig(max_slots=SERVE_SLOTS)
+    ms = sorted({1, 4, 64, 128, c.max_slots, c.prefill_chunk, c.max_slots + c.prefill_chunk})
+    return tuple(
+        (m, k, n, out)
+        for m in ms
+        for k, n, out in ((2048, 2048, None), (2048, 512, None), (2048, 5632, None),
+                          (5632, 2048, None), (2048, 32000, "float32"))
+    )
 # The case each kernel reports in the kernels JSON line.
 REPORTED = {"dtype": "torch.bfloat16", "b": 8, "s": 256}
 REPORTED_K6 = {"dtype": "torch.bfloat16", "b": 64, "s": None, "kn": (2048, 5632)}
+REPORTED_K8 = {"dtype": "torch.bfloat16", "reported": True}
 
 
 def kernel_cases(torch, cfg, timer):
@@ -396,7 +426,7 @@ def kernel_cases(torch, cfg, timer):
     for dtype in (torch.bfloat16, torch.float32):
         for kernel, b, s in MAIN_PATH_CASES:
             rows.append(cases[kernel](dtype, b, s))
-        for m, k, n, out in K6_CASES:
+        for m, k, n, out in k6_cases():
             rows.append(k6(dtype, m, k, n, out))
     for r in rows:
         ok = r["ratio"] <= 1.0 and math.isfinite(r["err"])
@@ -412,6 +442,142 @@ def kernel_cases(torch, cfg, timer):
         )
         if not ok:
             raise AssertionError(f"{r['kernel']} disagrees with its twin: {r}")
+    return rows
+
+
+# K8 at llama-1b serving shapes: the pool's page size and table width are
+# ContinuousConfig's defaults (64 and 32), the 16 decode rows the serving
+# phase's SERVE_SLOTS, the chunk its prefill_chunk. (label, kwargs); the
+# "fused" case is the one the kernels JSON line reports.
+K8_PG, K8_P = 64, 32
+K8_CASES = (
+    ("16 decode rows, lengths 70-1500", dict()),
+    ("the 16 rows in 2 groups sharing a 256-token run", dict(groups=2)),
+    ("fused: 8 grouped decode rows + a 64-token chunk at 256",
+     dict(b=8, groups=2, chunk=64)),
+    ("a chunk at 256 with dead decode rows only", dict(b=4, chunk=64, dead=True)),
+    ("4 verify rows of NQ=4", dict(b=4, nq=4)),
+    ("window 256", dict(window=256)),
+    ("fused, window 256", dict(b=8, groups=2, chunk=64, window=256)),
+)
+K8_REPORTED = "fused: 8 grouped decode rows + a 64-token chunk at 256"
+
+
+def ragged_cases(torch, cfg, timer):
+    """K8 against its twin on every case of ``K8_CASES``: bf16 queries over
+    a bf16 pool, float32 over float32, and float32 queries over the bf16
+    pool (the serving phase 5's pairing). The reported case is timed
+    against the twin and the library (two scaled_dot_product_attention
+    calls, decode rows and chunk, on K/V gathered out of the pool ahead
+    of time)."""
+    import torch.nn.functional as F
+
+    from llm_consensus_tpu_torch.ops.kernels import ragged_attention as kr
+
+    gen = torch.Generator(device="cuda").manual_seed(4321)
+    h, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    pg, P = K8_PG, K8_P
+
+    def randn(*shape, dtype):
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+    def case(label, dtype, kv_dtype, b=16, nq=0, groups=0, chunk=0, cstart=256,
+             window=0, dead=False):
+        n_pages = 1 + b * P + P
+        kp = randn(n_pages, pg, hkv, dh, dtype=kv_dtype)
+        vp = randn(n_pages, pg, hkv, dh, dtype=kv_dtype)
+        perm = (torch.randperm(n_pages - 1, generator=gen, device="cuda") + 1).int()
+        tbl = perm[: b * P].reshape(b, P).contiguous()
+        ctbl = perm[b * P : b * P + P].contiguous()
+        vl = torch.randint(70, 1501, (b,), generator=gen, device="cuda", dtype=torch.int32)
+        if dead:
+            tbl.zero_()
+            vl.zero_()
+        kw = dict(window=window)
+        sst = torch.zeros(b, dtype=torch.int32, device="cuda")
+        n_groups, run = 0, 256
+        if groups:
+            per = b // groups
+            n_groups = groups
+            for gi in range(groups):  # members map the first member's run
+                tbl[gi * per : (gi + 1) * per, : run // pg] = tbl[gi * per, : run // pg]
+            vl = torch.clamp(vl, min=run + 1)
+            sst.fill_(run)
+            kw["groups"] = (
+                (torch.arange(b, device="cuda") // per).int(),
+                (torch.arange(groups, device="cuda") * per).int(),
+                torch.full((groups,), run, dtype=torch.int32, device="cuda"),
+                sst,
+            )
+        q = randn(*((b, nq, h, dh) if nq else (b, h, dh)), dtype=dtype)
+        if chunk:
+            kw.update(q_chunk=randn(chunk, h, dh, dtype=dtype), chunk_table=ctbl,
+                      chunk_start=cstart)
+        fn = lambda: kr.ragged_paged_attention(q, kp, vp, tbl, vl, **kw)  # noqa: E731
+        plain = lambda: kr.ragged_paged_attention_plain(q, kp, vp, tbl, vl, **kw)  # noqa: E731
+        got, ref = fn(), plain()
+        if not chunk:
+            got, ref = (got,), (ref,)
+        errs = [compare(dtype, a, r) for a, r in zip(got, ref)]
+        r = dict(kernel="ragged_paged_attention", label=label, dtype=str(dtype),
+                 kv_dtype=str(kv_dtype), err=max(e for e, _ in errs),
+                 ratio=max(x for _, x in errs),
+                 finite=all(bool(torch.isfinite(a).all()) for a in got),
+                 shape=f"q[{b},{nq or 1},{h},{dh}] pool[{n_pages},{pg},{hkv},{dh}]"
+                 + (f" chunk {chunk}@{cstart}" if chunk else "")
+                 + (f" {groups} groups" if groups else ""))
+        if label != K8_REPORTED or dtype != kv_dtype:
+            return r
+        r["reported"] = True
+        # The library: decode rows and chunk through SDPA on K/V gathered
+        # out of the pool (in q's type) ahead of time.
+        kd = kp[tbl.long()].reshape(b, P * pg, hkv, dh).transpose(1, 2).to(dtype)
+        vd = vp[tbl.long()].reshape(b, P * pg, hkv, dh).transpose(1, 2).to(dtype)
+        slot = torch.arange(P * pg, device="cuda")
+        lo = (vl[:, None] - window) if window else torch.zeros_like(vl)[:, None]
+        dmask = ((slot[None] < vl[:, None]) & (slot[None] >= lo))[:, None, None, :]
+        qd = q[:, :, None] if not nq else q.transpose(1, 2)
+        kc = kp[ctbl.long()].reshape(1, P * pg, hkv, dh).transpose(1, 2).to(dtype)
+        vc = vp[ctbl.long()].reshape(1, P * pg, hkv, dh).transpose(1, 2).to(dtype)
+        qc = kw["q_chunk"].transpose(0, 1)[None]
+        cpos = cstart + torch.arange(chunk, device="cuda")
+        cmask = (slot[None, :] <= cpos[:, None])[None, None]
+
+        def library():
+            F.scaled_dot_product_attention(qd, kd, vd, attn_mask=dmask, enable_gqa=True)
+            F.scaled_dot_product_attention(qc, kc, vc, attn_mask=cmask, enable_gqa=True)
+
+        es, kes = torch.finfo(dtype).bits // 8, torch.finfo(kv_dtype).bits // 8
+        # Bytes: each slot's K and V row once (the shared run once per
+        # group, each row's own slots past it, the chunk's table up to its
+        # last query), q and out, tables and lengths. Operations: 4 * D
+        # per (query head, visible slot).
+        slots_read = n_groups * run + int((vl - sst).sum()) + cstart + chunk
+        nbytes = (2 * slots_read * hkv * dh * kes + 2 * (q.numel() + chunk * h * dh) * es
+                  + 4 * (b * P + P + 4 * b))
+        pairs = int(vl.sum()) * h + h * sum(cstart + i + 1 for i in range(chunk))
+        r.update(ms=timer.ms(fn), plain_ms=timer.ms(plain, iters=5),
+                 library_ms=timer.ms(library),
+                 bound=bound_ms(nbytes, 4 * pairs * dh, dtype))
+        return r
+
+    rows = []
+    for dtype, kv_dtype in ((torch.bfloat16, torch.bfloat16), (torch.float32, torch.float32),
+                            (torch.float32, torch.bfloat16)):
+        for label, kw in K8_CASES:
+            rows.append(case(label, dtype, kv_dtype, **kw))
+    for r in rows:
+        ok = r["ratio"] <= 1.0 and math.isfinite(r["err"]) and r["finite"]
+        timing = ""
+        if "ms" in r:
+            timing = (f" ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} "
+                      f"library_ms={r['library_ms']:.4f} "
+                      f"bound_ms={r['bound'][0]:.4f} ({r['bound'][1]})")
+        print(f"  K8 {r['dtype']:15s} over {r['kv_dtype']:15s} {r['label']:50s} "
+              f"{r['shape']:52s} max_abs_err={r['err']:.3e} err/tol={r['ratio']:.3f}"
+              f"{timing} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"ragged_paged_attention disagrees with its twin: {r}")
     return rows
 
 
@@ -435,9 +601,10 @@ def build_engine(torch, cfg, max_new_tokens: int = 64, quant: str = "none",
     )
 
 
-def run_consensus(engine):
+def run_consensus(inner):
+    """One consensus question over the backend ``inner`` (LocalBackend over
+    the engine, or ContinuousBackend over the batcher)."""
     from llm_consensus_tpu_torch.backends.base import Backend, SamplingParams
-    from llm_consensus_tpu_torch.backends.local import LocalBackend
     from llm_consensus_tpu_torch.consensus import (
         Coordinator,
         CoordinatorConfig,
@@ -452,7 +619,7 @@ def run_consensus(engine):
             self.calls += len(requests)
             return await self.inner.generate_batch(requests)
 
-    backend = CountingBackend(LocalBackend(engine))
+    backend = CountingBackend(inner)
     coord = Coordinator(
         default_panel(),
         backend,
@@ -504,6 +671,137 @@ def run_self_consistency(torch, engine, card: str):
             f"{max(sc.vote.tally.values()):.0f} card={card!r}"
         )
     return out
+
+
+# ---------------------------------------------------------------------------
+# The serving path: the continuous batcher (phases 3s and 4s)
+# ---------------------------------------------------------------------------
+
+_WORDS = ("leaf", "color", "autumn", "pigment", "light", "tree", "season",
+          "green", "cold", "sugar", "day", "night", "red", "yellow")
+
+
+def serving_burst(n_groups=4, per_group=8, new_tokens=(64, 128), greedy_only=False,
+                  seed=0):
+    """(prompt, submit kwargs) of a burst: ``n_groups`` groups of
+    ``per_group`` requests, each group sharing a 300-token header (the
+    byte tokenizer: one token per character, plus BOS), each request a
+    distinct tail of 10-150 tokens and 64-128 new tokens; even requests
+    greedy, odd ones at temperature 0.7 (all greedy with
+    ``greedy_only``), stop strings on every fourth."""
+    import random
+
+    rng = random.Random(seed)
+
+    def words(n):
+        out = ""
+        while len(out) < n:
+            out += rng.choice(_WORDS) + " "
+        return out[:n]
+
+    burst = []
+    for g in range(n_groups):
+        header = f"Panel {g}. " + words(290)
+        for _ in range(per_group):
+            i = len(burst)
+            tail = f" [{i}] " + words(rng.randint(10, 150) - len(f" [{i}] "))
+            kw = dict(max_new_tokens=rng.randint(*new_tokens), seed=i,
+                      temperature=0.0 if greedy_only or i % 2 == 0 else 0.7)
+            if i % 4 == 3:
+                kw["stop"] = ("\n\n", "Q:")
+            burst.append((header + tail, kw))
+    return burst
+
+
+def serve_burst(torch, batcher, burst, card: str, label: str):
+    """Submit the whole burst at once; every request must resolve. Prints
+    the burst's rates and the batcher's counters over it."""
+    st0 = batcher.stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    futs = [batcher.submit(p, **kw) for p, kw in burst]
+    outs = [f.result(timeout=600) for f in futs]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    st = batcher.stats()
+
+    def d(key):
+        return st[key] - st0[key]
+
+    bad = [i for i, o in enumerate(outs) if not isinstance(o.text, str) or o.num_tokens < 1]
+    if bad or len(outs) != len(burst):
+        raise AssertionError(f"{label}: requests {bad} did not resolve")
+    tokens = sum(o.num_tokens for o in outs)
+    iters = d("work_iterations")
+    programs = d("device_programs_fused") + d("device_programs_decode") + d("device_programs_prefill")
+    groups = d("decode_groups_sum")
+    out = dict(
+        requests=len(outs), seconds=wall, requests_per_s=len(outs) / wall,
+        generated_tokens=tokens, generated_tokens_per_s=tokens / wall,
+        iterations=iters, ms_per_iteration=1e3 * wall / max(1, iters),
+        programs_per_iteration=programs / max(1, iters),
+        programs_fused=d("device_programs_fused"), programs_decode=d("device_programs_decode"),
+        programs_prefill=d("device_programs_prefill"),
+        prefix_pages_shared=d("prefix_pages_shared"),
+        prefix_pages_copied=d("prefix_pages_copied"),
+        mean_group_size=d("decode_group_rows_sum") / groups if groups else 0.0,
+        mean_ttft_s=d("ttft_seconds_sum") / max(1, d("ttft_seconds_count")),
+        mean_tbt_s=d("tbt_seconds_sum") / max(1, d("tbt_seconds_count")),
+        pipeline_flushes=d("pipeline_flushes"),
+    )
+    print(f"  serving {label}: " + " ".join(
+        f"{k}={v:.6g}" if isinstance(v, float) else f"{k}={v}" for k, v in out.items())
+        + f" card={card!r}")
+    return out
+
+
+def serving_phases(torch, cfg, kernels, card: str, path_counts: dict):
+    """Phases 3s and 4s: the serving path at llama-1b full depth on bf16
+    weights, ContinuousConfig(max_slots=SERVE_SLOTS) and the rest at its defaults:
+    one consensus question through Coordinator -> ContinuousBackend, then
+    the 32-request burst; then 8 requests on int8 weights. Each run's
+    launch counts are set to 0 just before it and read just after."""
+    from llm_consensus_tpu_torch.models.transformer import init_params
+    from llm_consensus_tpu_torch.ops.quant import quantize_params
+    from llm_consensus_tpu_torch.serving import (
+        ContinuousBackend,
+        ContinuousBatcher,
+        ContinuousConfig,
+    )
+
+    params = init_params(cfg, 0, dtype=torch.bfloat16, device="cuda")
+    results = {}
+    runs = (
+        ("serve", params, ("fused_rms_norm", "ragged_paged_attention")),
+        ("serve_int8", None, ("fused_rms_norm", "quant_matmul_2d", "ragged_paged_attention")),
+    )
+    for label, p, needed in runs:
+        if p is None:
+            p = quantize_params(params)
+        batcher = ContinuousBatcher(cfg, p, config=ContinuousConfig(max_slots=SERVE_SLOTS))
+        try:
+            kernels.reset_launch_counts()
+            if label == "serve":
+                print("phase 3s (serving): consensus question through ContinuousBackend")
+                run_consensus(ContinuousBackend(batcher))
+                print("phase 4s (serving): 32-request burst, 4 groups of 8 sharing a header")
+                results[label] = serve_burst(torch, batcher, serving_burst(), card, "burst")
+            else:
+                print("phase 4s (serving, int8 weights): 8 requests, 2 groups of 4")
+                results[label] = serve_burst(
+                    torch, batcher, serving_burst(n_groups=2, per_group=4), card, "int8 burst")
+            torch.cuda.synchronize()
+            counts = launch_counts(kernels)
+        finally:
+            batcher.close()
+        print(f"  launches ({label}): {counts}")
+        missing = [name for name in needed if counts[name] == 0]
+        if missing:
+            raise AssertionError(f"the {label} path never launched {missing}")
+        path_counts[label] = counts
+        del batcher, p
+        torch.cuda.empty_cache()
+    return results
 
 
 # ---------------------------------------------------------------------------
@@ -608,6 +906,158 @@ def reference_check(torch, cfg_full, int8: bool = False):
             raise AssertionError(f"kernels path disagrees with the plain path: {label}")
 
 
+def paged_steps_check(torch, cfg_k, params, kernels, int8: bool):
+    """The paged steps, kernels path against plain path, on the same cache
+    (SERVE_SLOTS rows, so the steps' products have the serving phases'
+    M): chunked prefill of three prompts (two sharing two pages), two
+    grouped decode steps, one fused step. Before each step the plain path
+    gets a copy of the kernels path's cache, so the outputs compare one
+    step's arithmetic. The pool is float32: a bf16 pool rounds the K/V a
+    step writes and then reads (a chunk attends over its own tokens), so
+    a last-bit float32 difference between the paths becomes a one-ulp
+    bf16 difference there (the kernels path on the bf16 pool is held by
+    phase 2's float32-over-bf16 K8 cases and the burst's text below).
+    Only live rows' logits are compared:
+    the 13 idle rows attend over nothing on the kernels path (zeros) and
+    over their NULL table on the plain path, and both are discarded.
+    ``int8``: int8 weights, the plain path with the matmul kernel off."""
+    from llm_consensus_tpu_torch.models.paged_cache import (
+        GroupTracker,
+        PagedKVCache,
+        install_seq,
+    )
+    from llm_consensus_tpu_torch.models.transformer import (
+        decode_step_paged,
+        fused_step_paged,
+        prefill_chunk_paged,
+    )
+    from llm_consensus_tpu_torch.ops import quant
+
+    cfg_p = cfg_k.with_(use_pallas=False)
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    pg, P, slots = 64, 8, SERVE_SLOTS
+    cache = PagedKVCache.create(cfg_k, 40, pg, slots, P, torch.float32, device="cuda")
+    tol = 1e-3  # float32 logits of magnitude ~1 after 2 layers
+    worst = {"chunk hidden": 0.0, "decode logits": 0.0, "fused logits": 0.0,
+             "fused hidden": 0.0}
+    prompts_live = 3
+
+    def toks(n):
+        return torch.randint(3, 259, (n,), generator=gen, device="cuda")
+
+    def both(key, step, *args, **kw):
+        """The step on the kernels path's cache and on a copy for the
+        plain path; returns the kernels path's outputs."""
+        plain_cache = PagedKVCache(cache.k.clone(), cache.v.clone(),
+                                   cache.page_table.clone(), cache.length.clone())
+        out_k = step(cfg_k, params, *args, cache, **kw)
+        quant.set_kernel_enabled(False)
+        try:
+            out_p = step(cfg_p, params, *args, plain_cache, **kw)
+        finally:
+            quant.set_kernel_enabled(None)
+        for name, a, b in zip(key, out_k[:-1], out_p[:-1]):
+            if "logits" in name:
+                a, b = a[:prompts_live], b[:prompts_live]
+            if not bool(torch.isfinite(a).all()):
+                raise AssertionError(f"non-finite {name} on the kernels path")
+            worst[name] = max(worst[name], float((a - b).abs().max()))
+        return out_k
+
+    def table(pages):
+        t = torch.zeros(P, dtype=torch.int32, device="cuda")
+        t[: len(pages)] = torch.tensor(pages, dtype=torch.int32)
+        return t
+
+    kernels.reset_launch_counts()
+    p0 = toks(200)
+    prompts = [(p0, table([1, 2, 3, 4]), 0),
+               (torch.cat([p0[:128], toks(60)]), table([1, 2, 5, 6]), 128),
+               (toks(100), table([7, 8]), 0)]
+    for ids, tbl, start in prompts:
+        for pos in range(start, len(ids), pg):
+            chunk = torch.zeros(1, pg, dtype=torch.int64, device="cuda")
+            seg = ids[pos : pos + pg]
+            chunk[0, : len(seg)] = seg
+            both(("chunk hidden",), prefill_chunk_paged, chunk, tbl, pos)
+    groups = GroupTracker(slots, pg, device="cuda")
+    for i, (ids, tbl, _) in enumerate(prompts):
+        install_seq(cache, i, tbl, len(ids))
+        groups.add(i, tbl[: len(ids) // pg].tolist())
+    nxt = toks(slots)[:, None]
+    for _ in range(2):
+        logits, _ = both(("decode logits",), decode_step_paged, nxt, groups=groups.arrays())
+        nxt = logits.argmax(-1)[:, None]
+    ctoks = toks(pg)[None]
+    both(("fused logits", "fused hidden"), fused_step_paged, nxt, groups=groups.arrays(),
+         chunk_tokens=ctoks, chunk_table=table([9]), chunk_start=0)
+    torch.cuda.synchronize()
+    counts = launch_counts(kernels)
+    weights = "int8 weights" if int8 else "float32 weights"
+    needed = ("fused_rms_norm", "ragged_paged_attention") + (("quant_matmul_2d",) if int8 else ())
+    print(f"  llama-1b widths, 2 layers, {weights}, float32 activations and pool, "
+          f"{slots} rows ({prompts_live} live), paged steps on the same cache: "
+          + " ".join(f"max_abs_err[{k}]={v:.3e}" for k, v in worst.items())
+          + f" tol={tol:.0e} launches={ {name: counts[name] for name in needed} }")
+    if max(worst.values()) > tol:
+        raise AssertionError(f"paged steps ({weights}): kernels path disagrees with the "
+                             f"plain path: {worst}")
+    missing = [name for name in needed if counts[name] == 0]
+    if missing:
+        raise AssertionError(f"paged steps ({weights}) never launched {missing}")
+
+
+def serving_reference_check(torch, cfg_full, kernels):
+    """The serving path, kernels against plain, in float32 at llama-1b's
+    widths cut to 2 layers.
+
+    1. :func:`paged_steps_check` on float32 weights and on int8 weights.
+    2. A 16-request greedy burst (4 groups of 4) through the batcher (its
+       bfloat16 pool, float32 queries over it) at
+       pipeline depth 1 and 2, with the fused step on and off: the kernels
+       path's text must be byte-identical to the plain path's."""
+    from llm_consensus_tpu_torch.models.transformer import init_params
+    from llm_consensus_tpu_torch.ops.quant import quantize_params
+    from llm_consensus_tpu_torch.serving import ContinuousBatcher, ContinuousConfig
+
+    cfg_k = cfg_full.with_(n_layers=2, use_pallas=True)
+    cfg_p = cfg_k.with_(use_pallas=False)
+    params = init_params(cfg_k, 7, dtype=torch.float32, device="cuda")
+    paged_steps_check(torch, cfg_k, params, kernels, int8=False)
+    paged_steps_check(torch, cfg_k, quantize_params(params), kernels, int8=True)
+
+    burst = serving_burst(n_groups=4, per_group=4, new_tokens=(24, 40), greedy_only=True)
+    agree = []
+    for depth in (1, 2):
+        for fused in (True, False):
+            texts = {}
+            for name, cfg in (("kernels", cfg_k), ("plain", cfg_p)):
+                kernels.reset_launch_counts()
+                b = ContinuousBatcher(cfg, params, config=ContinuousConfig(
+                    max_slots=SERVE_SLOTS, pipeline_depth=depth, ragged_attention=fused))
+                try:
+                    futs = [b.submit(p, **kw) for p, kw in burst]
+                    texts[name] = [f.result(timeout=300).text for f in futs]
+                    stats = b.stats()
+                finally:
+                    b.close()
+                k8 = kernels.ragged_paged_attention.launches
+                if (k8 == 0) if name == "kernels" else (k8 != 0):
+                    raise AssertionError(f"{name} path: ragged_paged_attention launches {k8}")
+                if (stats["device_programs_fused"] > 0) != fused:
+                    raise AssertionError(f"fused={fused}: {stats['device_programs_fused']} fused programs")
+            same = texts["kernels"] == texts["plain"]
+            agree.append(texts["kernels"])
+            print(f"  serving burst, 16 greedy requests, float32, pipeline_depth={depth} "
+                  f"fused_step={fused}: kernels_text_equals_plain={same}")
+            if not same:
+                raise AssertionError(
+                    f"serving burst depth={depth} fused={fused}: kernels path text differs: "
+                    + ascii([(a, b) for a, b in zip(texts["kernels"], texts["plain"]) if a != b]))
+    print(f"  kernels-path text equal across the four configurations: "
+          f"{all(t == agree[0] for t in agree)}")
+
+
 # ---------------------------------------------------------------------------
 
 
@@ -621,6 +1071,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    from llm_consensus_tpu_torch.backends.local import LocalBackend
     from llm_consensus_tpu_torch.models.configs import get_config
     from llm_consensus_tpu_torch.ops import kernels
     from llm_consensus_tpu_torch.ops.kernels import build
@@ -640,7 +1091,9 @@ def main() -> int:
 
     cfg = get_config("llama-1b")
     print("phase 2: kernels against their twins")
-    rows = kernel_cases(torch, cfg, Timer(torch))
+    timer = Timer(torch)
+    rows = kernel_cases(torch, cfg, timer)
+    rows += ragged_cases(torch, cfg, timer)
 
     # Each main path, and the kernels it must launch. K5 and K7-q8-stacked
     # run only under set_stacked_decode(True) (off by default, as in the
@@ -657,7 +1110,7 @@ def main() -> int:
         print(f"phase 3 ({label}): consensus question on llama-1b, full depth")
         engine = build_engine(torch, cfg, **engine_kw)
         kernels.reset_launch_counts()
-        run_consensus(engine)
+        run_consensus(LocalBackend(engine))
         torch.cuda.synchronize()
         print(f"  launches: {launch_counts(kernels)}")
         print(f"phase 4 ({label}): self-consistency on llama-1b")
@@ -672,10 +1125,13 @@ def main() -> int:
         del engine
         torch.cuda.empty_cache()
 
+    serving = serving_phases(torch, cfg, kernels, card, path_counts)
+
     print("phase 5: reference check")
     from llm_consensus_tpu_torch.models.transformer import set_stacked_decode
 
     reference_check(torch, cfg)
+    serving_reference_check(torch, cfg, kernels)
     for stacked, needed in ((False, ("quant_matmul_2d", "flash_decode_attention_q8",
                                      "flash_decode_attention_shared_prefix_q8")),
                             (True, ("flash_decode_attention_q8_stacked",
@@ -698,7 +1154,8 @@ def main() -> int:
     p = "llm_consensus_tpu/ops/pallas/"
     # name -> (source, TPU kernel it replaces, the runs whose launches count)
     sources = {
-        "fused_rms_norm": (d + "rms_norm.cu", p + "norms.py:26", ("bf16", "int8")),
+        "fused_rms_norm": (d + "rms_norm.cu", p + "norms.py:26",
+                           ("bf16", "int8", "serve", "serve_int8")),
         "flash_causal_attention": (d + "causal_attention.cu", p + "attention.py:90",
                                    ("bf16", "int8")),
         "flash_decode_attention": (d + "decode_attention.cu", p + "attention.py:391", ("bf16",)),
@@ -708,15 +1165,19 @@ def main() -> int:
                                       ("int8",)),
         "flash_decode_attention_q8_stacked": (
             d + "decode_attention.cu", p + "attention.py:444", ("int8_stacked_check",)),
-        "quant_matmul_2d": (d + "quant_matmul.cu", p + "quant_matmul.py:59", ("int8",)),
+        "quant_matmul_2d": (d + "quant_matmul.cu", p + "quant_matmul.py:59",
+                            ("int8", "serve_int8")),
         "flash_decode_attention_shared_prefix_q8": (
             d + "decode_attention.cu", p + "attention.py:1541", ("int8",)),
         "flash_decode_attention_shared_prefix_q8_stacked": (
             d + "decode_attention.cu", p + "attention.py:1586", ("int8_stacked_check",)),
+        "ragged_paged_attention": (
+            d + "ragged_paged_attention.cu", p + "attention.py:1213", ("serve", "serve_int8")),
     }
     summary = []
     for name, (source, replaces, runs) in sources.items():
-        want = REPORTED_K6 if name == "quant_matmul_2d" else REPORTED
+        want = {"quant_matmul_2d": REPORTED_K6,
+                "ragged_paged_attention": REPORTED_K8}.get(name, REPORTED)
         r = next(r for r in rows if r["kernel"] == name
                  and all(r.get(k) == v for k, v in want.items()))
         summary.append({
@@ -727,6 +1188,7 @@ def main() -> int:
             "bound_by": r["bound"][1], "library_ms": r["library_ms"],
             "shape": r["shape"], "dtype": "bfloat16",
         })
+    print(json.dumps({"serving": serving, "card": smi}))
     print(json.dumps({"kernels": summary}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

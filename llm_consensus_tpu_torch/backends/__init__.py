@@ -10,9 +10,20 @@ from llm_consensus_tpu_torch.backends.fake import FakeBackend, ScriptedBackend
 __all__ = [
     "Backend",
     "BackendError",
+    "ContinuousBackend",
     "FakeBackend",
     "GenerationRequest",
     "GenerationResult",
     "SamplingParams",
     "ScriptedBackend",
 ]
+
+
+def __getattr__(name):
+    # The continuous batcher's backend lives in ``serving`` (which
+    # imports this package), so it is resolved on first use.
+    if name == "ContinuousBackend":
+        from llm_consensus_tpu_torch.serving.continuous import ContinuousBackend
+
+        return ContinuousBackend
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

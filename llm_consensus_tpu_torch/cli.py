@@ -1,16 +1,20 @@
 """CLI / REPL entry point of the PyTorch port.
 
-``python -m llm_consensus_tpu_torch --backend {fake,local} --model llama-1b
---question "..." [--quant {none,int8,int4}] [--max-new-tokens N]
-[--temperature T] [--seed S] [--cpu]``
+``python -m llm_consensus_tpu_torch --backend {fake,local,continuous}
+--model llama-1b --question "..." [--quant {none,int8,int4}]
+[--max-new-tokens N] [--temperature T] [--seed S] [--cpu]``
 
 The flags are the JAX package's (``llm_consensus_tpu/cli.py``) for the
 surfaces ported so far. Without ``--question`` it runs the reference's REPL
 (``src/main.rs:428-471``): prompt ``"Enter a question: "``, ``exit``
-terminates. The local backend runs on the card unless ``--cpu`` is given;
-without a checkpoint loader ported yet, its weights are random, made from
-``--seed``. ``--quant int8`` quantizes them to int8 at engine init (the
-W8A16 kernel); ``int4`` raises until its kernel is ported.
+terminates. The local and continuous backends run on the card unless
+``--cpu`` is given; without a checkpoint loader ported yet, their weights
+are random, made from ``--seed``. ``--quant int8`` quantizes them to int8
+(the W8A16 kernel); ``int4`` raises until its kernel is ported.
+``--backend continuous`` serves the panel through the continuous batcher
+(``--serve-slots``, ``--prefill-chunk``, ``--no-share-prefix``,
+``--no-ragged-attention``, ``--pipeline-depth``); the HTTP ``serve``
+subcommand comes with the gateway slice.
 """
 
 from __future__ import annotations
@@ -65,6 +69,34 @@ def _build_backend(args):
         cfg.name,
     )
     params = init_params(cfg, args.seed or 0, device=device)
+    if args.backend == "continuous":
+        from llm_consensus_tpu_torch.serving.continuous import (
+            ContinuousBackend,
+            ContinuousBatcher,
+            ContinuousConfig,
+        )
+
+        if args.quant != "none":
+            # The engine path's weight-only quantization: the paged steps
+            # read quantized leaves through ops.quant.matmul as well.
+            from llm_consensus_tpu_torch.ops.quant import quantize_params
+
+            params = quantize_params(params, bits=8 if args.quant == "int8" else 4)
+        return ContinuousBackend(
+            ContinuousBatcher(
+                cfg,
+                params,
+                config=ContinuousConfig(
+                    max_slots=args.serve_slots,
+                    max_new_tokens=args.max_new_tokens,
+                    prefill_chunk=args.prefill_chunk,
+                    share_prefix=not args.no_share_prefix,
+                    pipeline_depth=args.pipeline_depth,
+                    ragged_attention=not args.no_ragged_attention,
+                ),
+                device=device,
+            )
+        )
     engine = InferenceEngine(
         cfg,
         params,
@@ -81,11 +113,48 @@ def build_parser() -> argparse.ArgumentParser:
         prog="llm_consensus_tpu_torch",
         description="Multi-persona LLM consensus on local PyTorch inference.",
     )
-    p.add_argument("--backend", choices=["fake", "local"], default="fake")
+    p.add_argument(
+        "--backend", choices=["fake", "local", "continuous"], default="fake"
+    )
     p.add_argument(
         "--cpu",
         action="store_true",
-        help="run the local backend on the CPU instead of the card",
+        help="run the local or continuous backend on the CPU instead of "
+        "the card",
+    )
+    p.add_argument(
+        "--serve-slots",
+        type=int,
+        default=8,
+        help="continuous backend: decode slots (batch width of the decode "
+        "program)",
+    )
+    p.add_argument(
+        "--prefill-chunk",
+        type=int,
+        default=64,
+        help="continuous backend: prefill-chunk tokens interleaved between "
+        "decode steps",
+    )
+    p.add_argument(
+        "--no-share-prefix",
+        action="store_true",
+        help="continuous backend: disable copy-on-write shared-prefix page "
+        "dedup",
+    )
+    p.add_argument(
+        "--no-ragged-attention",
+        action="store_true",
+        help="continuous backend: disable the fused scheduler step — "
+        "prefill chunks run as standalone programs between decode steps "
+        "(outputs are identical either way)",
+    )
+    p.add_argument(
+        "--pipeline-depth",
+        type=int,
+        default=2,
+        help="continuous backend: decode programs in flight at once (1 = "
+        "the serialized loop; outputs are identical either way)",
     )
     p.add_argument("--model", default="llama-1b", help="model preset name")
     p.add_argument("--panel", default=None, help="panel JSON file")

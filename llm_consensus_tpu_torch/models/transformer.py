@@ -15,12 +15,17 @@ Differences by design:
   int8 weights go through the W8A16 kernel by shape, as in the JAX
   package (:func:`~llm_consensus_tpu_torch.ops.quant.matmul`).
 
-MoE, sliding windows, ring attention, the paged steps and the chunk mode
-are not ported yet; the entry points raise on configs that need them.
+MoE, sliding windows, ring attention, the speculative verify step and
+the chunk mode are not ported yet; the entry points raise on configs that
+need them.
 
 Entry points: :func:`forward` (logits for every position),
 :func:`prefill` (fill the cache from right-padded prompts, last-token
-logits) and :func:`decode_step` (one token against the cache).
+logits) and :func:`decode_step` (one token against the cache); for the
+continuous batcher's page pool (:mod:`.paged_cache`),
+:func:`decode_step_paged`, :func:`prefill_chunk_paged`,
+:func:`fused_step_paged` and :func:`unembed_one`. The paged steps write
+the pool in place and return the cache they were given.
 """
 
 from __future__ import annotations
@@ -32,12 +37,14 @@ import torch
 
 from llm_consensus_tpu_torch.models.cache import KVCache, QuantKVCache, quantize_kv
 from llm_consensus_tpu_torch.models.configs import ModelConfig
+from llm_consensus_tpu_torch.models.paged_cache import NULL_PAGE, PagedKVCache
 from llm_consensus_tpu_torch.ops import kernels
 from llm_consensus_tpu_torch.ops.activations import swiglu
 from llm_consensus_tpu_torch.ops.attention import (
     causal_attention,
     decode_attention,
     decode_attention_quant,
+    ragged_paged_attention_reference,
 )
 from llm_consensus_tpu_torch.ops.norms import rms_norm
 from llm_consensus_tpu_torch.ops.quant import QuantizedTensor, leaves, quantize_params
@@ -494,3 +501,257 @@ def decode_step(
     )
     logits = _unembed(cfg, params, x[:, 0])
     return logits, cache.advanced(1)
+
+
+# ---------------------------------------------------------------------------
+# Paged steps (the continuous batcher's device programs)
+# ---------------------------------------------------------------------------
+
+
+def _attn_paged(
+    cfg: ModelConfig,
+    q_dec,
+    q_chunk,
+    k_pool,
+    v_pool,
+    tables,
+    valid,
+    chunk_table=None,
+    chunk_start=None,
+    groups=None,
+):
+    """Paged attention for one layer's decode rows (+ optional prefill
+    chunk row) — the kernel seam of the serving path: ``cfg.use_pallas``
+    picks K8 (:func:`~llm_consensus_tpu_torch.ops.kernels.
+    ragged_paged_attention`), anything else the gather reference with the
+    same ragged semantics (which ignores ``groups``: outputs equal).
+
+    q_dec: [B, H, D]; q_chunk: [C, H, D] or None; groups: K8's tuple from
+    :func:`_group_args` or None; returns out_dec [B, H, D] (and out_chunk
+    [C, H, D] when q_chunk is given)."""
+    window = cfg.sliding_window
+    if cfg.use_pallas:
+        return kernels.ragged_paged_attention(
+            q_dec, k_pool, v_pool, tables, valid,
+            q_chunk=q_chunk, chunk_table=chunk_table, chunk_start=chunk_start,
+            groups=groups, window=window,
+        )
+    return ragged_paged_attention_reference(
+        q_dec, k_pool, v_pool, tables, valid,
+        q_chunk=q_chunk, chunk_table=chunk_table, chunk_start=chunk_start,
+        window=window,
+    )
+
+
+def _group_args(cfg: ModelConfig, groups, page_size: int):
+    """K8's group tuple (group_id, group_rep, group_end in tokens,
+    shared_start) from :class:`DecodeGroupArrays`, built once per step;
+    None without groups or on the reference path (which ignores them)."""
+    if groups is None or not cfg.use_pallas:
+        return None
+    return (
+        groups.group_id,
+        groups.group_rep,
+        (groups.group_pages * page_size).to(torch.int32),
+        groups.shared_start,
+    )
+
+
+def _attn_len(cache: PagedKVCache, valid: torch.Tensor) -> torch.Tensor:
+    """Tokens each decode row attends over: ``valid``, or 0 for a row
+    whose table is NULL (an idle or mid-prefill slot). Such a row's
+    length keeps growing while it idles; attending over it would walk up
+    to ``pages_per_seq`` pages of the NULL page in every layer. Its output
+    is discarded either way (zeros here, the NULL page's garbage in the
+    JAX package); ``cache.length`` still advances as there."""
+    return torch.where(cache.page_table[:, 0] == NULL_PAGE, 0, valid).to(torch.int32)
+
+
+def _page_index(pos: torch.Tensor, cache: PagedKVCache) -> torch.Tensor:
+    return torch.clamp(pos // cache.page_size, max=cache.pages_per_seq - 1)
+
+
+def _paged_layers(cfg: ModelConfig, params: dict, x, cos, sin, cache, attend):
+    """The layer loop of the paged steps. ``attend(layer, q, k, v,
+    k_pool, v_pool)`` writes the layer's new K/V into its pool views and
+    returns the attention output [..., H, D] shaped like q."""
+    blocks = params["blocks"]
+    for layer in range(cfg.n_layers):
+        p = {
+            name: leaf.layer(layer) if isinstance(leaf, QuantizedTensor) else leaf[layer]
+            for name, leaf in blocks.items()
+        }
+        h = _rms(cfg, x, p["attn_norm"])
+        q, k, v = _project_qkv(cfg, p, h)
+        q = apply_rope(q, cos, sin)
+        k = apply_rope(k, cos, sin)
+        attn = attend(q, k, v, cache.k[layer], cache.v[layer])
+        x = x + _qmm(attn.reshape(*x.shape[:-1], -1), p["wo"])
+        h2 = _rms(cfg, x, p["mlp_norm"])
+        x = x + _mlp(cfg, p, h2)
+    return x
+
+
+@torch.inference_mode()
+def decode_step_paged(
+    cfg: ModelConfig,
+    params: dict,
+    tokens: torch.Tensor,
+    cache: PagedKVCache,
+    groups=None,
+) -> tuple[torch.Tensor, PagedKVCache]:
+    """One decode step for every cache sequence, paged layout.
+
+    tokens: [max_seqs, 1]. Row b writes its new K/V at
+    ``page_table[b, length[b] // page]`` offset ``length[b] % page`` and
+    attends over its pages. Inactive rows (NULL tables) write into the
+    reserved NULL page and attend over nothing (:func:`_attn_len`) —
+    outputs the serving layer discards. ``groups`` (a :class:`~llm_consensus_tpu_torch.models.
+    paged_cache.DecodeGroupArrays` or None): rows sharing a prefix page
+    run read it once per group through K8's group pass. Returns (logits
+    [max_seqs, V] float32, the cache, its lengths advanced by one).
+    """
+    _check_supported(cfg)
+    b = tokens.shape[0]
+    pos = cache.length.long()  # [B] write positions
+    x = params["embed"][tokens]  # [B, 1, D]
+    cos, sin = rope_cos_sin(pos[:, None], cfg.head_dim, cfg.rope_theta, cfg.rope_scaling)
+    pg = cache.page_size
+    rows = torch.arange(b, device=tokens.device)
+    # An idle row's length keeps growing past its (NULL) table; clamp the
+    # page index as the JAX package's gather does.
+    pages_now = cache.page_table[rows, _page_index(pos, cache)].long()
+    offset = pos % pg
+    valid = cache.length + 1
+    attn_len = _attn_len(cache, valid)
+    gargs = _group_args(cfg, groups, pg)
+
+    def attend(q, k, v, k_pool, v_pool):
+        k_pool[pages_now, offset] = k[:, 0].to(k_pool.dtype)
+        v_pool[pages_now, offset] = v[:, 0].to(v_pool.dtype)
+        return _attn_paged(
+            cfg, q[:, 0], None, k_pool, v_pool, cache.page_table, attn_len, groups=gargs
+        )[:, None]
+
+    x = _paged_layers(cfg, params, x, cos, sin, cache, attend)
+    logits = _unembed(cfg, params, x[:, 0])
+    cache.length.copy_(valid)
+    return logits, cache
+
+
+@torch.inference_mode()
+def prefill_chunk_paged(
+    cfg: ModelConfig,
+    params: dict,
+    tokens: torch.Tensor,
+    table: torch.Tensor,
+    start: int,
+    cache: PagedKVCache,
+) -> tuple[torch.Tensor, PagedKVCache]:
+    """One prompt chunk for ONE sequence, scattered into paged K/V.
+
+    tokens: [1, C] chunk ids at absolute positions ``start + i``; table:
+    [pages_per_seq] int32 page ids (position p lives in
+    ``table[p // page_size]`` at offset ``p % page_size``); start: int.
+    Writes each chunk token's K/V through ``table`` and attends over the
+    table's content so far plus the chunk (ragged causal). The table is
+    an argument, not a row of ``cache.page_table``: a mid-prefill
+    sequence stays invisible to the decode rows. The attention is the
+    SAME K8 call as a fused chunk's, with one dead decode row (NULL
+    table, length 0), so a standalone chunk and a fused chunk write the
+    same cache bytes. Returns ([1, C, D] hidden states, the cache);
+    ``page_table`` and ``length`` are untouched.
+    """
+    _check_supported(cfg)
+    c = tokens.shape[1]
+    dev = tokens.device
+    pos = int(start) + torch.arange(c, device=dev)
+    x = params["embed"][tokens]  # [1, C, D]
+    cos, sin = rope_cos_sin(pos[None], cfg.head_dim, cfg.rope_theta, cfg.rope_scaling)
+    pg = cache.page_size
+    pages = table.long()[pos // pg]
+    offs = pos % pg
+    dead_tbl = torch.zeros((1, table.shape[0]), dtype=torch.int32, device=dev)
+    dead_len = torch.zeros((1,), dtype=torch.int32, device=dev)
+    q_dead = torch.zeros((1, cfg.n_heads, cfg.head_dim), dtype=x.dtype, device=dev)
+
+    def attend(q, k, v, k_pool, v_pool):
+        k_pool[pages, offs] = k[0].to(k_pool.dtype)
+        v_pool[pages, offs] = v[0].to(v_pool.dtype)
+        return _attn_paged(
+            cfg, q_dead, q[0].contiguous(), k_pool, v_pool, dead_tbl, dead_len,
+            chunk_table=table, chunk_start=int(start),
+        )[1][None]
+
+    x = _paged_layers(cfg, params, x, cos, sin, cache, attend)
+    return x, cache
+
+
+@torch.inference_mode()
+def fused_step_paged(
+    cfg: ModelConfig,
+    params: dict,
+    tokens: torch.Tensor,
+    cache: PagedKVCache,
+    chunk_tokens: torch.Tensor,
+    chunk_table: torch.Tensor,
+    chunk_start: int,
+    groups=None,
+) -> tuple[torch.Tensor, torch.Tensor, PagedKVCache]:
+    """One decode step for every cache sequence PLUS one prefill chunk —
+    one device program (the fused scheduler step).
+
+    tokens: [B, 1]; chunk_tokens: [1, C] one sequence's prompt chunk at
+    positions ``chunk_start + i`` written through ``chunk_table`` [P] as
+    in :func:`prefill_chunk_paged`. Decode rows and the chunk share one
+    token axis [B + C] for the embedding, RoPE, the projections and the
+    MLP; attention is one K8 call with the chunk as one more row. Dense
+    MLP only (MoE is refused). Returns (decode logits [B, V] float32,
+    chunk hidden [1, C, D], the cache, decode lengths advanced by one).
+    """
+    _check_supported(cfg)
+    b = tokens.shape[0]
+    c = chunk_tokens.shape[1]
+    dev = tokens.device
+    pos = cache.length.long()
+    chunk_pos = int(chunk_start) + torch.arange(c, device=dev)
+    all_pos = torch.cat([pos, chunk_pos])
+    x = params["embed"][torch.cat([tokens[:, 0], chunk_tokens[0]])][None]  # [1, B+C, D]
+    cos, sin = rope_cos_sin(all_pos[None], cfg.head_dim, cfg.rope_theta, cfg.rope_scaling)
+    pg = cache.page_size
+    rows = torch.arange(b, device=dev)
+    pages_dec = cache.page_table[rows, _page_index(pos, cache)].long()
+    offs_dec = pos % pg
+    pages_ch = chunk_table.long()[chunk_pos // pg]
+    offs_ch = chunk_pos % pg
+    valid = cache.length + 1
+    attn_len = _attn_len(cache, valid)
+    gargs = _group_args(cfg, groups, pg)
+
+    def attend(q, k, v, k_pool, v_pool):
+        # Two scatters over disjoint real pages: decode rows write their
+        # private pages, the chunk positions >= chunk_start of its table.
+        k0 = k[0].to(k_pool.dtype)
+        v0 = v[0].to(v_pool.dtype)
+        k_pool[pages_dec, offs_dec] = k0[:b]
+        v_pool[pages_dec, offs_dec] = v0[:b]
+        k_pool[pages_ch, offs_ch] = k0[b:]
+        v_pool[pages_ch, offs_ch] = v0[b:]
+        attn_dec, attn_ch = _attn_paged(
+            cfg, q[0, :b].contiguous(), q[0, b:].contiguous(), k_pool, v_pool,
+            cache.page_table, attn_len, chunk_table=chunk_table,
+            chunk_start=int(chunk_start), groups=gargs,
+        )
+        return torch.cat([attn_dec, attn_ch])[None]  # [1, B+C, H, D]
+
+    x = _paged_layers(cfg, params, x, cos, sin, cache, attend)
+    logits = _unembed(cfg, params, x[0, :b])
+    cache.length.copy_(valid)
+    return logits, x[:, b:], cache
+
+
+@torch.inference_mode()
+def unembed_one(cfg: ModelConfig, params: dict, h: torch.Tensor) -> torch.Tensor:
+    """Logits [V] float32 for ONE hidden state [D] — the final-chunk
+    unembed of the chunked-prefill path (a D x V matvec, not C x V)."""
+    return _unembed(cfg, params, h[None])[0]

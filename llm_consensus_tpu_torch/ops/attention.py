@@ -2,10 +2,12 @@
 
 The plain PyTorch versions of ``llm_consensus_tpu.ops.attention``'s
 ``causal_attention``, ``decode_attention``,
-``decode_attention_shared_prefix`` and their int8-cache forms
-``decode_attention_quant`` and ``decode_attention_shared_prefix_quant``;
-the hand-written kernels that replace them on the hot path are in
-:mod:`llm_consensus_tpu_torch.ops.kernels.attention`.
+``decode_attention_shared_prefix``, their int8-cache forms
+``decode_attention_quant`` and ``decode_attention_shared_prefix_quant``,
+and the paged serving path's ``chunk_decode_attention`` and
+``ragged_paged_attention_reference``; the hand-written kernels that
+replace them on the hot path are in
+:mod:`llm_consensus_tpu_torch.ops.kernels`.
 
 Conventions (the JAX package's):
 - q/k/v are [B, S, H, D] / [B, S, Hkv, D]; GQA groups are expanded by
@@ -214,3 +216,86 @@ def decode_attention_shared_prefix_quant(
         valid_len,
         prefix_len,
     )
+
+
+def chunk_decode_attention(
+    q: torch.Tensor,
+    k_cache: torch.Tensor,
+    v_cache: torch.Tensor,
+    valid_len: torch.Tensor,
+    window: int = 0,
+) -> torch.Tensor:
+    """K-token chunk decode against the cache.
+
+    q: [B, K, H, D] — K new tokens per row whose k/v are already written
+    at slots [valid_len, valid_len + K); k_cache/v_cache: [B, S, Hkv, D];
+    valid_len: [B] pre-chunk fill. Chunk token i attends cache slots
+    < valid_len + i + 1 (ragged causal within the chunk). ``window`` > 0:
+    token i also ignores slots <= valid_len + i - window.
+    """
+    scale = q.shape[-1] ** -0.5
+    scores = _gqa_scores(q, k_cache) * scale  # [B, Hkv, G, K, S]
+    kq = q.shape[1]
+    s = k_cache.shape[1]
+    limit = (
+        valid_len.long()[:, None, None]
+        + torch.arange(kq, device=q.device)[None, :, None]
+        + 1
+    )
+    slots = torch.arange(s, device=q.device)[None, None, :]
+    mask = slots < limit  # [B, K, S]
+    if window > 0:
+        mask &= slots > limit - 1 - window
+    scores = torch.where(mask[:, None, None], scores, _NEG_INF)
+    return _gqa_out(_softmax(scores), v_cache, q.dtype)
+
+
+def ragged_paged_attention_reference(
+    q: torch.Tensor,
+    k_pool: torch.Tensor,
+    v_pool: torch.Tensor,
+    page_table: torch.Tensor,
+    valid_len: torch.Tensor,
+    *,
+    q_chunk: torch.Tensor | None = None,
+    chunk_table: torch.Tensor | None = None,
+    chunk_start=None,
+    window: int = 0,
+):
+    """The gather-then-attend oracle of the ragged paged attention kernel
+    (K8), and the serving path when ``cfg.use_pallas`` is False.
+
+    Decode rows materialize their tables out of the pool and apply
+    :func:`decode_attention`'s one-token rule; the optional prefill-chunk
+    row (``q_chunk`` [C, H, D], queries at absolute positions
+    ``chunk_start + i`` through ``chunk_table`` [P]) applies
+    :func:`chunk_decode_attention`'s ragged-causal rule. Shared-prefix
+    groups are a bandwidth optimization of the kernel and do not exist
+    here.
+
+    q: [B, H, D], or [B, NQ, H, D] verify rows (row b's queries at
+    positions ``valid_len[b] - NQ + i``); k_pool/v_pool: [n_pages, page,
+    Hkv, D]; page_table: [B, P]; valid_len: [B]. Returns out_dec shaped
+    like ``q`` (and out_chunk [C, H, D] when ``q_chunk`` is given). A
+    dead row (valid_len 0) averages every slot of its table, where the
+    kernel gives zeros.
+    """
+    nq = None
+    if q.dim() == 4:
+        b, nq, h, d = q.shape
+    else:
+        b, h, d = q.shape
+    hkv = k_pool.shape[2]
+    k_seq = k_pool[page_table.long()].reshape(b, -1, hkv, d)
+    v_seq = v_pool[page_table.long()].reshape(b, -1, hkv, d)
+    if nq is None:
+        out = decode_attention(q[:, None], k_seq, v_seq, valid_len, window=window)[:, 0]
+    else:
+        out = chunk_decode_attention(q, k_seq, v_seq, valid_len - nq, window=window)
+    if q_chunk is None:
+        return out
+    kc = k_pool[chunk_table.long()].reshape(1, -1, hkv, d)
+    vc = v_pool[chunk_table.long()].reshape(1, -1, hkv, d)
+    start = torch.as_tensor(chunk_start, dtype=torch.int32, device=q.device).reshape(1)
+    out_chunk = chunk_decode_attention(q_chunk[None], kc, vc, start, window=window)[0]
+    return out, out_chunk

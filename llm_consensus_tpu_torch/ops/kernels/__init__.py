@@ -19,6 +19,9 @@ launches and nothing else.
 - K7-q8 :func:`~.attention.flash_decode_attention_shared_prefix_q8` and
   :func:`~.attention.flash_decode_attention_shared_prefix_q8_stacked`
   (``csrc/decode_attention.cu``)
+- K8 :func:`~.ragged_attention.ragged_paged_attention` and its thin
+  wrappers ``paged_decode_attention`` and
+  ``paged_decode_attention_grouped`` (``csrc/ragged_paged_attention.cu``)
 """
 
 from llm_consensus_tpu_torch.ops.kernels.attention import (
@@ -32,6 +35,11 @@ from llm_consensus_tpu_torch.ops.kernels.attention import (
 )
 from llm_consensus_tpu_torch.ops.kernels.norms import fused_rms_norm
 from llm_consensus_tpu_torch.ops.kernels.quant_matmul import quant_matmul_2d
+from llm_consensus_tpu_torch.ops.kernels.ragged_attention import (
+    paged_decode_attention,
+    paged_decode_attention_grouped,
+    ragged_paged_attention,
+)
 
 KERNELS = (
     fused_rms_norm,
@@ -43,6 +51,7 @@ KERNELS = (
     quant_matmul_2d,
     flash_decode_attention_shared_prefix_q8,
     flash_decode_attention_shared_prefix_q8_stacked,
+    ragged_paged_attention,
 )
 
 
@@ -61,6 +70,9 @@ __all__ = [
     "flash_decode_attention_shared_prefix_q8",
     "flash_decode_attention_shared_prefix_q8_stacked",
     "fused_rms_norm",
+    "paged_decode_attention",
+    "paged_decode_attention_grouped",
     "quant_matmul_2d",
+    "ragged_paged_attention",
     "reset_launch_counts",
 ]

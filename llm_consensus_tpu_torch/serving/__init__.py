@@ -1,0 +1,22 @@
+"""Serving: token-level continuous batching over the paged KV cache.
+
+:class:`ContinuousBatcher` admits and retires requests at decode-step
+granularity on one card (the throughput-serving mode);
+:class:`ContinuousBackend` puts it behind the Backend seam the
+Coordinator calls. The JAX package's request-level scheduler, replica
+fleet, multi-model set and host tier are not ported yet.
+"""
+
+from llm_consensus_tpu_torch.serving.continuous import (
+    ContinuousBackend,
+    ContinuousBatcher,
+    ContinuousConfig,
+    ServeResult,
+)
+
+__all__ = [
+    "ContinuousBackend",
+    "ContinuousBatcher",
+    "ContinuousConfig",
+    "ServeResult",
+]

@@ -5,6 +5,19 @@ with ``--int8`` on the int8 path (weights quantized at engine init, int8
 KV cache).
 
     python3 scripts/torch_decode_profile.py [--n 64] [--new-tokens 32] [--int8]
+    python3 scripts/torch_decode_profile.py --serve [--low-load]
+
+``--serve`` profiles the serving path instead: ``chip_smoke.py``'s
+32-request burst (``chip_smoke.serving_burst``, another seed each run)
+through a ``ContinuousBatcher`` with ``max_slots=chip_smoke.SERVE_SLOTS``
+on the same weights (device time of the batcher's worker thread: the
+profiler traces the card, not a thread). ``--low-load``: a server past
+its busy hour instead. Every slot serves once, then one long request
+decodes alone while the other slots idle (``IDLE_STEPS`` steps); each
+run is then one request (300-token header, 128 new tokens) among slots
+that have idled that long. ``idle_slot_length_max`` in the output is
+the longest cache length of a slot at the end (idle slots' lengths grow
+by one each step).
 
 Runs ``InferenceEngine.generate_texts`` on N copies of
 ``chip_smoke.SC_PROMPT`` (the self-consistency fan-out of
@@ -37,6 +50,10 @@ from pathlib import Path
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
+# --low-load: decode steps the other slots idle for before the measured
+# requests (a slot's table holds 32 pages of 64 tokens).
+IDLE_STEPS = 1800
+
 
 def main() -> int:
     ap = argparse.ArgumentParser()
@@ -44,6 +61,10 @@ def main() -> int:
     ap.add_argument("--new-tokens", type=int, default=32)
     ap.add_argument("--int8", action="store_true",
                     help="int8 weights and an int8 KV cache")
+    ap.add_argument("--serve", action="store_true",
+                    help="the serving burst through the continuous batcher")
+    ap.add_argument("--low-load", action="store_true",
+                    help="with --serve: one request at a time among idle slots")
     args = ap.parse_args()
 
     import torch
@@ -56,16 +77,49 @@ def main() -> int:
         print("needs a CUDA card", file=sys.stderr)
         return 1
     quant = dict(quant="int8", kv_quant=True) if args.int8 else {}
-    engine = build_engine(torch, get_config("llama-1b"), args.new_tokens, **quant)
-    prompts = [SC_PROMPT] * args.n
-    temps = [0.7] * args.n
+    if args.serve:
+        from chip_smoke import SERVE_SLOTS, serving_burst
+        from llm_consensus_tpu_torch.models.transformer import init_params
+        from llm_consensus_tpu_torch.serving import ContinuousBatcher, ContinuousConfig
 
-    def run():
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = engine.generate_texts(prompts, temperatures=temps, seed=0)
-        torch.cuda.synchronize()
-        return time.perf_counter() - t0, out
+        cfg = get_config("llama-1b")
+        params = init_params(cfg, 0, dtype=torch.bfloat16, device="cuda")
+        if args.int8:  # int8 weights; the serving pool stays bf16
+            from llm_consensus_tpu_torch.ops.quant import quantize_params
+
+            params = quantize_params(params)
+        batcher = ContinuousBatcher(cfg, params, config=ContinuousConfig(max_slots=SERVE_SLOTS))
+        seeds = iter(range(3))
+        burst_kw = {}
+        if args.low_load:
+            burst_kw = dict(n_groups=1, per_group=1, new_tokens=(128, 128))
+            for f in [batcher.submit(p, **kw) for p, kw in serving_burst(
+                    n_groups=1, per_group=SERVE_SLOTS, new_tokens=(8, 8), seed=10)]:
+                f.result(timeout=600)
+            batcher.submit("idle " * 10, max_new_tokens=IDLE_STEPS).result(timeout=600)
+        st0 = batcher.stats()
+
+        def run():
+            # Each run its own burst: a repeat would find its prompts in
+            # the prefix registry.
+            burst = serving_burst(seed=next(seeds), **burst_kw)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = [f.result(timeout=600) for f in
+                   [batcher.submit(p, **kw) for p, kw in burst]]
+            torch.cuda.synchronize()
+            return time.perf_counter() - t0, out
+    else:
+        engine = build_engine(torch, get_config("llama-1b"), args.new_tokens, **quant)
+        prompts = [SC_PROMPT] * args.n
+        temps = [0.7] * args.n
+
+        def run():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = engine.generate_texts(prompts, temperatures=temps, seed=0)
+            torch.cuda.synchronize()
+            return time.perf_counter() - t0, out
 
     run()  # warm up (cuBLAS handles, the kernel library)
     plain_wall, _ = run()
@@ -78,11 +132,24 @@ def main() -> int:
     busy_ms = sum(by_name.values()) / 1e3
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
     steps = args.new_tokens  # one prefill + (new_tokens - 1) decode steps
+    serve = {}
+    if args.serve:
+        stats = batcher.stats()
+        idle_len = int(batcher.cache.length.max())
+        batcher.close()
+        serve = {k: stats[k] - st0[k] for k in (
+            "work_iterations", "device_programs_fused", "device_programs_decode",
+            "device_programs_prefill")}
+        steps = serve["work_iterations"] / 3  # three bursts ran
+        if args.low_load:
+            serve["idle_slot_length_max"] = idle_len
     print(json.dumps({
         "card": torch.cuda.get_device_name(0),
-        "path": "int8" if args.int8 else "bf16",
-        "n": args.n,
-        "new_tokens": args.new_tokens,
+        "path": ("serve " if args.serve else "") + ("low load " if args.low_load else "")
+        + ("int8" if args.int8 else "bf16"),
+        "n": len(out) if args.serve else args.n,
+        "new_tokens": None if args.serve else args.new_tokens,
+        **serve,
         "generated_tokens": sum(r.num_tokens for r in out),
         "wall_ms": plain_wall * 1e3,
         "wall_ms_per_step": plain_wall * 1e3 / steps,
