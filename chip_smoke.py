@@ -16,7 +16,10 @@ nothing of JAX or of the JAX package. Phases:
    + 128; K6 at M = B on the w_gate shape), bf16 and fp32, plus the main
    path's own largest shapes in ``MAIN_PATH_CASES`` and K6 at every
    llama-1b projection shape for the engine's and the serving path's M
-   (``k6_cases``), also in both types. K7 is
+   (``k6_cases``), also in both types; K10 (the W4A16 matmul) at the same
+   llama-1b shapes and M and at llama3-8b's projections at M = 64 (random
+   packed bytes), both types, each case also held against K6 on the same
+   integer weights unpacked to int8. K7 is
    also held against K3, and K7-q8 against K4, on the same cache. Print
    the max abs error and the worst ratio of error to tolerance, the
    kernel's time, the twin's time, one PyTorch call computing the same
@@ -33,21 +36,26 @@ nothing of JAX or of the JAX package. Phases:
    -> LocalBackend -> InferenceEngine (default panel, round cap 2, 64 new
    tokens): once in bf16 (bf16 weights, bf16 KV cache), once on the int8
    path (the same weights quantized at engine init, int8 KV cache:
-   ``EngineConfig(quant="int8", kv_quant=True)``).
+   ``EngineConfig(quant="int8", kv_quant=True)``), once on the int4 path
+   (``quant="int4"``, int8 KV cache).
 4. The main path, part two, on the same engine after each phase 3:
    self-consistency with N = 8 and N = 64 on one 128-token prompt, 128
    new tokens, majority vote; candidate-tokens/s. The fan-out decodes
    through K7 (bf16) or K7-q8 (int8), the prompt's K/V read once per
    step. The kernels' launch counts are set to 0 just before each path's
    phase 3 and read just after its phase 4; each kernel of that path must
-   be > 0.
+   be > 0. On the int4 engine, the capacity planner: ``memory_estimate``
+   and ``plan_memory`` for the N=64 call beside the bytes the card holds
+   (params, the N-row KV cache the call decodes over, which must equal the
+   plan's terms) and the call's peak allocation (``plan vs allocated``).
 3s, 4s. The serving path: llama-1b, bf16 weights, a ContinuousBatcher
    with ``ContinuousConfig(max_slots=SERVE_SLOTS)`` (16): one consensus question
    through ContinuousBackend, then a 32-request burst (4 groups of 8
    sharing a 300-token header; ``serving burst:`` prints requests/s,
    generated tokens/s, wall ms per scheduler iteration, device programs
    per iteration, prefix pages shared and copied, mean decode-group
-   size); then 8 requests on int8 weights. K1 and K8 (and K6 on int8)
+   size); then 8 requests on int8 weights and 8 on int4 weights
+   (``serving int4 burst:``). K1 and K8 (and K6 on int8, K10 on int4)
    must launch in each run.
 5. Reference check on the card: llama-1b's widths cut to 2 layers, in
    float32, kernels path against the plain path (prefill and decode
@@ -56,16 +64,18 @@ nothing of JAX or of the JAX package. Phases:
    then the same on int8 weights and the int8 cache, the plain path with
    ``ops.quant.set_kernel_enabled(False)``, once with
    ``set_stacked_decode(False)`` and once with ``True`` (K5 and
-   K7-q8-stacked count their launches there); the paged steps on the
+   K7-q8-stacked count their launches there); again on int4 weights (the
+   plain path with ``set_kernel4_enabled(False)``); the paged steps on the
    same cache (float32 pool, 16 rows as in phase 4s; float32 weights,
-   then int8 weights with K6 against the dequantized product) and the
+   then int8 and int4 weights with K6 and K10 against the twins) and the
    greedy serving burst over the batcher's bf16 pool,
    kernels against plain, at pipeline depth 1 and 2 with the fused step
    on and off; and finite outputs of phases 3 and 4.
 
 Any failure raises (exit code != 0). The last four lines are the
-``serving`` JSON, the ``kernels`` JSON, the card's ``nvidia-smi`` name
-and power limit, and ``{"ok": true, "device": {...}}``.
+``serving`` JSON (with the ``plan`` check's numbers), the ``kernels``
+JSON, the card's ``nvidia-smi`` name and power limit, and ``{"ok": true,
+"device": {...}}``.
 """
 
 from __future__ import annotations
@@ -179,28 +189,37 @@ MAIN_PATH_CASES = (
 SERVE_SLOTS = 16
 
 
-def k6_cases():
-    """K6 at every llama-1b projection shape (K, N, out type; wq/wo,
-    wk/wv, w_gate/w_up, w_down, the lm_head with float32 logits) for the
-    engine paths' M: the question (1), the panel (4), the N=64 fan-out's
-    decode (64) and a one-prompt prefill of the 128 bucket (128); and for
-    the serving path's, from its ContinuousConfig: a decode step of
-    max_slots rows, a standalone chunk of prefill_chunk rows, a fused
-    step of both."""
+def projection_shapes(cfg):
+    """(K, N, out type) of every projection of ``cfg``: wq (and wo's
+    transpose), wk/wv, w_gate/w_up, w_down, and the lm_head with float32
+    logits."""
+    d, dh = cfg.d_model, cfg.head_dim
+    return ((d, cfg.n_heads * dh, None), (d, cfg.n_kv_heads * dh, None),
+            (d, cfg.d_ff, None), (cfg.d_ff, d, None), (d, cfg.vocab_size, "float32"))
+
+
+def k6_cases(cfg):
+    """K6 and K10 at every llama-1b projection shape for the engine
+    paths' M: the question (1), the panel (4), the N=64 fan-out's decode
+    (64) and a one-prompt prefill of the 128 bucket (128); and for the
+    serving path's, from its ContinuousConfig: a decode step of max_slots
+    rows, a standalone chunk of prefill_chunk rows, a fused step of both."""
     from llm_consensus_tpu_torch.serving import ContinuousConfig
 
     c = ContinuousConfig(max_slots=SERVE_SLOTS)
     ms = sorted({1, 4, 64, 128, c.max_slots, c.prefill_chunk, c.max_slots + c.prefill_chunk})
-    return tuple(
-        (m, k, n, out)
-        for m in ms
-        for k, n, out in ((2048, 2048, None), (2048, 512, None), (2048, 5632, None),
-                          (5632, 2048, None), (2048, 32000, "float32"))
-    )
+    return tuple((m, k, n, out) for m in ms for k, n, out in projection_shapes(cfg))
+
+
+# K10 beyond llama-1b: llama3-8b's projections at the fan-out's M = 64,
+# where int4 weights are what make a model fit (random packed bytes made
+# on the card, no model).
+K10_BIG_MODEL, K10_BIG_M = "llama3-8b", 64
 # The case each kernel reports in the kernels JSON line.
 REPORTED = {"dtype": "torch.bfloat16", "b": 8, "s": 256}
 REPORTED_K6 = {"dtype": "torch.bfloat16", "b": 64, "s": None, "kn": (2048, 5632)}
 REPORTED_K8 = {"dtype": "torch.bfloat16", "reported": True}
+REPORTED_K10 = {"dtype": "torch.bfloat16", "b": 64, "kn": (2048, 5632), "model": "llama-1b"}
 
 
 def kernel_cases(torch, cfg, timer):
@@ -210,7 +229,14 @@ def kernel_cases(torch, cfg, timer):
     from llm_consensus_tpu_torch.ops.kernels import attention as ka
     from llm_consensus_tpu_torch.ops.kernels import norms as kn
     from llm_consensus_tpu_torch.ops.kernels import quant_matmul as kq
-    from llm_consensus_tpu_torch.ops.quant import dequantize, quantize_tensor
+    from llm_consensus_tpu_torch.models.configs import get_config
+    from llm_consensus_tpu_torch.ops.quant import (
+        Quantized4Tensor,
+        dequantize,
+        dequantize4,
+        quantize_tensor,
+        quantize_tensor4,
+    )
 
     gen = torch.Generator(device="cuda").manual_seed(1234)
     d_model, h, hkv, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
@@ -410,6 +436,35 @@ def kernel_cases(torch, cfg, timer):
         r["kn"] = (k, n)
         return r
 
+    def k10(dtype, m, k, n, out=None, model="llama-1b"):  # x [M, K] @ int4 w [K/2, N]
+        es = torch.finfo(dtype).bits // 8
+        out_dtype = getattr(torch, out) if out else None
+        x = randn(m, k, dtype=dtype)
+        if model == "llama-1b":
+            qt = quantize_tensor4(randn(k, n, dtype=torch.float32) * 0.02, 0)
+        else:  # random bytes; scales for weights of std ~0.02 (nibbles' std ~4.6)
+            qt = Quantized4Tensor(
+                q=torch.randint(-128, 128, (k // 2, n), generator=gen, device="cuda",
+                                dtype=torch.int8),
+                scale=(0.02 / 4.6) * (0.5 + torch.rand(1, n, generator=gen, device="cuda")))
+        w_lib = dequantize4(qt, dtype)  # the library's weight, made ahead of time
+        w8 = kq.unpack4(qt.q, torch.int8)  # the same integers, for K6
+        fn = lambda: kq.quant4_matmul_2d(x, qt.q, qt.scale, out_dtype)  # noqa: E731
+        k6 = lambda: kq.quant_matmul_2d(x, w8, qt.scale, out_dtype)  # noqa: E731
+        out_es = torch.finfo(out_dtype or dtype).bits // 8
+        got = fn()
+        r = row(
+            "quant4_matmul_2d", dtype, m, None,
+            f"{model} x[{m},{k}] w_q4[{k // 2},{n}] -> {out or str(dtype)[6:]}",
+            got, kq.quant4_matmul_2d_plain(x, qt.q, qt.scale, out_dtype), fn,
+            lambda: kq.quant4_matmul_2d_plain(x, qt.q, qt.scale, out_dtype),
+            lambda: x @ w_lib,
+            k * n // 2 + 4 * n + m * k * es + m * n * out_es, 2 * m * k * n,
+            out_dtype=out_dtype,
+        )
+        r.update(kn=(k, n), model=model)
+        return held_against(r, "k6", out_dtype or dtype, got, k6(), k6)
+
     rows = []
     for dtype in (torch.bfloat16, torch.float32):
         for b in (1, 8):
@@ -426,8 +481,10 @@ def kernel_cases(torch, cfg, timer):
     for dtype in (torch.bfloat16, torch.float32):
         for kernel, b, s in MAIN_PATH_CASES:
             rows.append(cases[kernel](dtype, b, s))
-        for m, k, n, out in k6_cases():
-            rows.append(k6(dtype, m, k, n, out))
+        for m, k, n, out in k6_cases(cfg):
+            rows += [k6(dtype, m, k, n, out), k10(dtype, m, k, n, out)]
+        for k, n, out in projection_shapes(get_config(K10_BIG_MODEL)):
+            rows.append(k10(dtype, K10_BIG_M, k, n, out, model=K10_BIG_MODEL))
     for r in rows:
         ok = r["ratio"] <= 1.0 and math.isfinite(r["err"])
         extra = ""
@@ -589,8 +646,8 @@ def ragged_cases(torch, cfg, timer):
 def build_engine(torch, cfg, max_new_tokens: int = 64, quant: str = "none",
                  kv_quant: bool = False):
     """The main path's engine: ``cfg`` on the card, random bf16 weights
-    from seed 0, quantized at engine init when ``quant="int8"``; the KV
-    cache in int8 when ``kv_quant``."""
+    from seed 0, quantized at engine init when ``quant`` is "int8" or
+    "int4"; the KV cache in int8 when ``kv_quant``."""
     from llm_consensus_tpu_torch.engine.engine import EngineConfig, InferenceEngine
     from llm_consensus_tpu_torch.models.transformer import init_params
 
@@ -670,6 +727,61 @@ def run_self_consistency(torch, engine, card: str):
             f"candidate_tokens_per_s={rate:.1f} winner_votes="
             f"{max(sc.vote.tally.values()):.0f} card={card!r}"
         )
+    return out
+
+
+def planner_check(torch, engine, card: str):
+    """The capacity planner against what the card holds, on the int4
+    engine: ``memory_estimate`` and the config-only ``plan_memory`` for
+    the N=64 fan-out (the self-consistency prompt, 128 new tokens) beside
+    the bytes of the engine's params and of the N-row KV cache that one
+    such call decodes over, and that call's peak allocation (for
+    information: activations and temporaries are outside the plan)."""
+    import importlib
+
+    from llm_consensus_tpu_torch.engine.engine import plan_memory
+    from llm_consensus_tpu_torch.ops.quant import quantized_bytes
+
+    # The module (the package's ``generate`` attribute is the function).
+    generate_mod = importlib.import_module("llm_consensus_tpu_torch.engine.generate")
+
+    n, new = 64, 128
+    prompt_len = len(engine.tokenizer.encode(SC_PROMPT))
+    est = engine.memory_estimate(n_candidates=n, prompt_len=prompt_len, new_tokens=new)
+    plan = plan_memory(engine.cfg, quant=engine.config.quant,
+                       kv_quant=engine.config.kv_quant, n_candidates=n,
+                       prompt_len=prompt_len, new_tokens=new)
+    held = []  # bytes of each cache the decode loop runs over
+    decode_loop = generate_mod._decode_loop
+
+    def recording(cfg, params, logits, cache, *args, **kw):
+        held.append(sum(t.numel() * t.element_size() for t in cache.leaves))
+        return decode_loop(cfg, params, logits, cache, *args, **kw)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    generate_mod._decode_loop = recording
+    try:
+        engine.generate_texts([SC_PROMPT] * n, temperatures=[0.7] * n, seed=0,
+                              max_new_tokens=new)
+        torch.cuda.synchronize()
+    finally:
+        generate_mod._decode_loop = decode_loop
+    params_bytes = quantized_bytes(engine.params)
+    out = dict(
+        n_candidates=n, prompt_tokens=prompt_len, new_tokens=new,
+        params_bytes_held=params_bytes, params_bytes_planned=plan["params_bytes"],
+        kv_cache_bytes_held=held, kv_cache_bytes_planned=plan["kv_cache_bytes"],
+        logits_bytes_planned=plan["logits_bytes"], total_bytes_planned=plan["total_bytes"],
+        allocated_bytes_before_call=before,
+        max_allocated_bytes_of_call=torch.cuda.max_memory_allocated(),
+        total_memory=torch.cuda.get_device_properties(0).total_memory,
+    )
+    print("  plan vs allocated (int4 engine, N=64): " + " ".join(
+        f"{k}={v}" for k, v in out.items()) + f" card={card!r}")
+    if est != plan or params_bytes != plan["params_bytes"] or held != [plan["kv_cache_bytes"]]:
+        raise AssertionError(f"the plan disagrees with the card: {out} estimate {est}")
     return out
 
 
@@ -759,8 +871,9 @@ def serving_phases(torch, cfg, kernels, card: str, path_counts: dict):
     """Phases 3s and 4s: the serving path at llama-1b full depth on bf16
     weights, ContinuousConfig(max_slots=SERVE_SLOTS) and the rest at its defaults:
     one consensus question through Coordinator -> ContinuousBackend, then
-    the 32-request burst; then 8 requests on int8 weights. Each run's
-    launch counts are set to 0 just before it and read just after."""
+    the 32-request burst; then 8 requests on int8 weights and 8 on int4
+    weights. Each run's launch counts are set to 0 just before it and
+    read just after."""
     from llm_consensus_tpu_torch.models.transformer import init_params
     from llm_consensus_tpu_torch.ops.quant import quantize_params
     from llm_consensus_tpu_torch.serving import (
@@ -771,13 +884,13 @@ def serving_phases(torch, cfg, kernels, card: str, path_counts: dict):
 
     params = init_params(cfg, 0, dtype=torch.bfloat16, device="cuda")
     results = {}
-    runs = (
-        ("serve", params, ("fused_rms_norm", "ragged_paged_attention")),
-        ("serve_int8", None, ("fused_rms_norm", "quant_matmul_2d", "ragged_paged_attention")),
+    runs = (  # (label, weight bits or None for bf16, kernels that must launch)
+        ("serve", None, ("fused_rms_norm", "ragged_paged_attention")),
+        ("serve_int8", 8, ("fused_rms_norm", "quant_matmul_2d", "ragged_paged_attention")),
+        ("serve_int4", 4, ("fused_rms_norm", "quant4_matmul_2d", "ragged_paged_attention")),
     )
-    for label, p, needed in runs:
-        if p is None:
-            p = quantize_params(params)
+    for label, bits, needed in runs:
+        p = params if bits is None else quantize_params(params, bits=bits)
         batcher = ContinuousBatcher(cfg, p, config=ContinuousConfig(max_slots=SERVE_SLOTS))
         try:
             kernels.reset_launch_counts()
@@ -787,9 +900,10 @@ def serving_phases(torch, cfg, kernels, card: str, path_counts: dict):
                 print("phase 4s (serving): 32-request burst, 4 groups of 8 sharing a header")
                 results[label] = serve_burst(torch, batcher, serving_burst(), card, "burst")
             else:
-                print("phase 4s (serving, int8 weights): 8 requests, 2 groups of 4")
+                print(f"phase 4s (serving, int{bits} weights): 8 requests, 2 groups of 4")
                 results[label] = serve_burst(
-                    torch, batcher, serving_burst(n_groups=2, per_group=4), card, "int8 burst")
+                    torch, batcher, serving_burst(n_groups=2, per_group=4), card,
+                    f"int{bits} burst")
             torch.cuda.synchronize()
             counts = launch_counts(kernels)
         finally:
@@ -809,9 +923,18 @@ def serving_phases(torch, cfg, kernels, card: str, path_counts: dict):
 # ---------------------------------------------------------------------------
 
 
-def reference_check(torch, cfg_full, int8: bool = False):
-    """``int8``: int8 weights (the plain path with the matmul kernel
-    switched off) and the int8 KV cache."""
+def set_matmul_kernels(switch) -> None:
+    """The int8 and int4 matmul kernels' switch (ops.quant), both at once."""
+    from llm_consensus_tpu_torch.ops import quant
+
+    quant.set_kernel_enabled(switch)
+    quant.set_kernel4_enabled(switch)
+
+
+def reference_check(torch, cfg_full, bits: int = 0):
+    """``bits`` 8 or 4: int8 or packed int4 weights (the plain path with
+    the matmul kernels switched off) and the int8 KV cache; 0: float32
+    weights and cache."""
     from llm_consensus_tpu_torch.models.cache import KVCache, QuantKVCache
     from llm_consensus_tpu_torch.models.transformer import (
         decode_step,
@@ -823,8 +946,9 @@ def reference_check(torch, cfg_full, int8: bool = False):
     cfg_k = cfg_full.with_(n_layers=2, use_pallas=True)
     cfg_p = cfg_k.with_(use_pallas=False)
     params = init_params(cfg_k, 7, dtype=torch.float32, device="cuda")
+    int8 = bits > 0  # the int8 KV cache goes with quantized weights
     if int8:
-        params = quant.quantize_params(params)
+        params = quant.quantize_params(params, bits=bits)
     gen = torch.Generator(device="cuda").manual_seed(3)
     s, steps = 128, 16
     ragged = torch.randint(3, 259, (2, s), generator=gen, device="cuda")
@@ -836,11 +960,11 @@ def reference_check(torch, cfg_full, int8: bool = False):
     paths = (("kernels", cfg_k, None), ("plain", cfg_p, False))  # (name, cfg, kernel switch)
 
     def on_path(switch, fn, *args, **kw):
-        quant.set_kernel_enabled(switch)
+        set_matmul_kernels(switch)
         try:
             return fn(*args, **kw)
         finally:
-            quant.set_kernel_enabled(None)
+            set_matmul_kernels(None)
 
     def same_cache(caches, stats):
         """int8: the two paths quantize float32 K/V that differ in the last
@@ -888,7 +1012,7 @@ def reference_check(torch, cfg_full, int8: bool = False):
             worst = max(worst, float((lk - lp).abs().max()))
         same = bool((torch.stack(toks["kernels"]) == torch.stack(toks["plain"])).all())
         tol = 1e-3  # float32 logits of magnitude ~1 after 2 layers
-        weights = "int8 weights + int8 cache" if int8 else "float32 cache"
+        weights = f"int{bits} weights + int8 cache" if int8 else "float32 cache"
         extra = ""
         if int8:
             share = stats["moved"] / stats["entries"]
@@ -906,7 +1030,7 @@ def reference_check(torch, cfg_full, int8: bool = False):
             raise AssertionError(f"kernels path disagrees with the plain path: {label}")
 
 
-def paged_steps_check(torch, cfg_k, params, kernels, int8: bool):
+def paged_steps_check(torch, cfg_k, params, kernels, bits: int = 0):
     """The paged steps, kernels path against plain path, on the same cache
     (SERVE_SLOTS rows, so the steps' products have the serving phases'
     M): chunked prefill of three prompts (two sharing two pages), two
@@ -920,7 +1044,8 @@ def paged_steps_check(torch, cfg_k, params, kernels, int8: bool):
     Only live rows' logits are compared:
     the 13 idle rows attend over nothing on the kernels path (zeros) and
     over their NULL table on the plain path, and both are discarded.
-    ``int8``: int8 weights, the plain path with the matmul kernel off."""
+    ``bits`` 8 or 4: int8 or int4 weights, the plain path with the matmul
+    kernels off."""
     from llm_consensus_tpu_torch.models.paged_cache import (
         GroupTracker,
         PagedKVCache,
@@ -931,7 +1056,6 @@ def paged_steps_check(torch, cfg_k, params, kernels, int8: bool):
         fused_step_paged,
         prefill_chunk_paged,
     )
-    from llm_consensus_tpu_torch.ops import quant
 
     cfg_p = cfg_k.with_(use_pallas=False)
     gen = torch.Generator(device="cuda").manual_seed(5)
@@ -951,11 +1075,11 @@ def paged_steps_check(torch, cfg_k, params, kernels, int8: bool):
         plain_cache = PagedKVCache(cache.k.clone(), cache.v.clone(),
                                    cache.page_table.clone(), cache.length.clone())
         out_k = step(cfg_k, params, *args, cache, **kw)
-        quant.set_kernel_enabled(False)
+        set_matmul_kernels(False)
         try:
             out_p = step(cfg_p, params, *args, plain_cache, **kw)
         finally:
-            quant.set_kernel_enabled(None)
+            set_matmul_kernels(None)
         for name, a, b in zip(key, out_k[:-1], out_p[:-1]):
             if "logits" in name:
                 a, b = a[:prompts_live], b[:prompts_live]
@@ -993,8 +1117,9 @@ def paged_steps_check(torch, cfg_k, params, kernels, int8: bool):
          chunk_tokens=ctoks, chunk_table=table([9]), chunk_start=0)
     torch.cuda.synchronize()
     counts = launch_counts(kernels)
-    weights = "int8 weights" if int8 else "float32 weights"
-    needed = ("fused_rms_norm", "ragged_paged_attention") + (("quant_matmul_2d",) if int8 else ())
+    weights = f"int{bits} weights" if bits else "float32 weights"
+    matmul_kernel = {8: ("quant_matmul_2d",), 4: ("quant4_matmul_2d",)}.get(bits, ())
+    needed = ("fused_rms_norm", "ragged_paged_attention") + matmul_kernel
     print(f"  llama-1b widths, 2 layers, {weights}, float32 activations and pool, "
           f"{slots} rows ({prompts_live} live), paged steps on the same cache: "
           + " ".join(f"max_abs_err[{k}]={v:.3e}" for k, v in worst.items())
@@ -1011,7 +1136,7 @@ def serving_reference_check(torch, cfg_full, kernels):
     """The serving path, kernels against plain, in float32 at llama-1b's
     widths cut to 2 layers.
 
-    1. :func:`paged_steps_check` on float32 weights and on int8 weights.
+    1. :func:`paged_steps_check` on float32, int8 and int4 weights.
     2. A 16-request greedy burst (4 groups of 4) through the batcher (its
        bfloat16 pool, float32 queries over it) at
        pipeline depth 1 and 2, with the fused step on and off: the kernels
@@ -1023,8 +1148,9 @@ def serving_reference_check(torch, cfg_full, kernels):
     cfg_k = cfg_full.with_(n_layers=2, use_pallas=True)
     cfg_p = cfg_k.with_(use_pallas=False)
     params = init_params(cfg_k, 7, dtype=torch.float32, device="cuda")
-    paged_steps_check(torch, cfg_k, params, kernels, int8=False)
-    paged_steps_check(torch, cfg_k, quantize_params(params), kernels, int8=True)
+    paged_steps_check(torch, cfg_k, params, kernels)
+    for bits in (8, 4):
+        paged_steps_check(torch, cfg_k, quantize_params(params, bits=bits), kernels, bits)
 
     burst = serving_burst(n_groups=4, per_group=4, new_tokens=(24, 40), greedy_only=True)
     agree = []
@@ -1081,7 +1207,7 @@ def main() -> int:
     card = torch.cuda.get_device_name(0)
     smi = nvidia_smi_line()
     print(f"python {sys.version.split()[0]} torch {torch.__version__} cuda {torch.version.cuda}")
-    print(f"card: {smi}")
+    print(f"card: {smi} total_memory={torch.cuda.get_device_properties(0).total_memory}")
 
     print("phase 1: build")
     t0 = time.perf_counter()
@@ -1104,8 +1230,12 @@ def main() -> int:
         ("int8", dict(quant="int8", kv_quant=True), (
             "fused_rms_norm", "flash_causal_attention", "quant_matmul_2d",
             "flash_decode_attention_q8", "flash_decode_attention_shared_prefix_q8")),
+        ("int4", dict(quant="int4", kv_quant=True), (
+            "fused_rms_norm", "flash_causal_attention", "quant4_matmul_2d",
+            "flash_decode_attention_q8", "flash_decode_attention_shared_prefix_q8")),
     )
     path_counts = {}
+    plan = None
     for label, engine_kw, needed in paths:
         print(f"phase 3 ({label}): consensus question on llama-1b, full depth")
         engine = build_engine(torch, cfg, **engine_kw)
@@ -1122,6 +1252,8 @@ def main() -> int:
         if missing:
             raise AssertionError(f"the {label} main path never launched {missing}")
         path_counts[label] = counts
+        if label == "int4":
+            plan = planner_check(torch, engine, card)
         del engine
         torch.cuda.empty_cache()
 
@@ -1132,21 +1264,24 @@ def main() -> int:
 
     reference_check(torch, cfg)
     serving_reference_check(torch, cfg, kernels)
-    for stacked, needed in ((False, ("quant_matmul_2d", "flash_decode_attention_q8",
-                                     "flash_decode_attention_shared_prefix_q8")),
-                            (True, ("flash_decode_attention_q8_stacked",
-                                    "flash_decode_attention_shared_prefix_q8_stacked"))):
+    q8_decode = ("flash_decode_attention_q8", "flash_decode_attention_shared_prefix_q8")
+    for bits, stacked, needed in (
+            (8, False, ("quant_matmul_2d",) + q8_decode),
+            (8, True, ("flash_decode_attention_q8_stacked",
+                       "flash_decode_attention_shared_prefix_q8_stacked")),
+            (4, False, ("quant4_matmul_2d",) + q8_decode)):
         set_stacked_decode(stacked)
         kernels.reset_launch_counts()
         try:
-            reference_check(torch, cfg, int8=True)
+            reference_check(torch, cfg, bits=bits)
         finally:
             set_stacked_decode(False)
         counts = launch_counts(kernels)
-        print(f"  launches, int8 check, stacked decode {stacked}: {counts}")
+        print(f"  launches, int{bits} check, stacked decode {stacked}: {counts}")
         missing = [name for name in needed if counts[name] == 0]
         if missing:
-            raise AssertionError(f"the int8 check (stacked {stacked}) never launched {missing}")
+            raise AssertionError(
+                f"the int{bits} check (stacked {stacked}) never launched {missing}")
         if stacked:
             path_counts["int8_stacked_check"] = counts
 
@@ -1155,28 +1290,31 @@ def main() -> int:
     # name -> (source, TPU kernel it replaces, the runs whose launches count)
     sources = {
         "fused_rms_norm": (d + "rms_norm.cu", p + "norms.py:26",
-                           ("bf16", "int8", "serve", "serve_int8")),
+                           ("bf16", "int8", "int4", "serve", "serve_int8", "serve_int4")),
         "flash_causal_attention": (d + "causal_attention.cu", p + "attention.py:90",
-                                   ("bf16", "int8")),
+                                   ("bf16", "int8", "int4")),
         "flash_decode_attention": (d + "decode_attention.cu", p + "attention.py:391", ("bf16",)),
         "flash_decode_attention_shared_prefix": (
             d + "decode_attention.cu", p + "attention.py:1494", ("bf16",)),
         "flash_decode_attention_q8": (d + "decode_attention.cu", p + "attention.py:280",
-                                      ("int8",)),
+                                      ("int8", "int4")),
         "flash_decode_attention_q8_stacked": (
             d + "decode_attention.cu", p + "attention.py:444", ("int8_stacked_check",)),
         "quant_matmul_2d": (d + "quant_matmul.cu", p + "quant_matmul.py:59",
                             ("int8", "serve_int8")),
         "flash_decode_attention_shared_prefix_q8": (
-            d + "decode_attention.cu", p + "attention.py:1541", ("int8",)),
+            d + "decode_attention.cu", p + "attention.py:1541", ("int8", "int4")),
         "flash_decode_attention_shared_prefix_q8_stacked": (
             d + "decode_attention.cu", p + "attention.py:1586", ("int8_stacked_check",)),
         "ragged_paged_attention": (
-            d + "ragged_paged_attention.cu", p + "attention.py:1213", ("serve", "serve_int8")),
+            d + "ragged_paged_attention.cu", p + "attention.py:1213",
+            ("serve", "serve_int8", "serve_int4")),
+        "quant4_matmul_2d": (d + "quant_matmul.cu", p + "quant_matmul.py:161",
+                             ("int4", "serve_int4")),
     }
     summary = []
     for name, (source, replaces, runs) in sources.items():
-        want = {"quant_matmul_2d": REPORTED_K6,
+        want = {"quant_matmul_2d": REPORTED_K6, "quant4_matmul_2d": REPORTED_K10,
                 "ragged_paged_attention": REPORTED_K8}.get(name, REPORTED)
         r = next(r for r in rows if r["kernel"] == name
                  and all(r.get(k) == v for k, v in want.items()))
@@ -1188,7 +1326,7 @@ def main() -> int:
             "bound_by": r["bound"][1], "library_ms": r["library_ms"],
             "shape": r["shape"], "dtype": "bfloat16",
         })
-    print(json.dumps({"serving": serving, "card": smi}))
+    print(json.dumps({"serving": serving, "plan": plan, "card": smi}))
     print(json.dumps({"kernels": summary}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -4,13 +4,19 @@
 --model llama-1b --question "..." [--quant {none,int8,int4}]
 [--max-new-tokens N] [--temperature T] [--seed S] [--cpu]``
 
+``python -m llm_consensus_tpu_torch --plan --model llama3-8b [--plan-n 64]
+[--plan-context 2048] [--plan-quant {none,int8,int4}] [--plan-kv
+{none,int8}] [--plan-hbm-gib G]``: the config-only device-memory plan
+(nothing is allocated, no card needed) as the JAX package's JSON; exit 1
+when it does not fit.
+
 The flags are the JAX package's (``llm_consensus_tpu/cli.py``) for the
 surfaces ported so far. Without ``--question`` it runs the reference's REPL
 (``src/main.rs:428-471``): prompt ``"Enter a question: "``, ``exit``
 terminates. The local and continuous backends run on the card unless
 ``--cpu`` is given; without a checkpoint loader ported yet, their weights
 are random, made from ``--seed``. ``--quant int8`` quantizes them to int8
-(the W8A16 kernel); ``int4`` raises until its kernel is ported.
+(the W8A16 kernel), ``--quant int4`` to packed int4 (the W4A16 kernel).
 ``--backend continuous`` serves the panel through the continuous batcher
 (``--serve-slots``, ``--prefill-chunk``, ``--no-share-prefix``,
 ``--no-ragged-attention``, ``--pipeline-depth``); the HTTP ``serve``
@@ -34,6 +40,11 @@ from llm_consensus_tpu_torch.consensus.coordinator import (
 from llm_consensus_tpu_torch.consensus.personas import default_panel, load_panel
 
 log = logging.getLogger("llm_consensus_tpu_torch")
+
+# ``--plan-hbm-gib``'s default: the device memory of one NVIDIA H100 80GB
+# HBM3, torch.cuda.get_device_properties(0).total_memory as chip_smoke.py
+# prints it there.
+H100_TOTAL_MEMORY = 85_017_493_504
 
 
 def _init_logging() -> None:
@@ -177,7 +188,86 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument(
         "--question", default=None, help="answer one question and exit"
     )
+    p.add_argument(
+        "--plan",
+        action="store_true",
+        help="print the device-memory plan for --model at --plan-n/"
+        "--plan-context (config-only, nothing is allocated, no card "
+        "needed): does the config fit one card? Honors --plan-quant/"
+        "--plan-kv/--plan-hbm-gib.",
+    )
+    p.add_argument("--plan-n", type=int, default=64)
+    p.add_argument("--plan-context", type=int, default=2048)
+    p.add_argument(
+        "--plan-quant", default="int8", choices=("none", "int8", "int4")
+    )
+    p.add_argument(
+        "--plan-kv",
+        default="int8",
+        choices=("none", "int8"),
+        help="KV-cache quantization the plan assumes (bf16 doubles the "
+        "cache term)",
+    )
+    p.add_argument(
+        "--plan-mesh",
+        default="",
+        metavar="AXIS=N,...",
+        help="not ported yet: a mesh with an axis > 1 raises",
+    )
+    p.add_argument(
+        "--plan-hbm-gib",
+        type=float,
+        default=H100_TOTAL_MEMORY / (1 << 30),
+        help="device memory per card (default: one NVIDIA H100 80GB HBM3's)",
+    )
     return p
+
+
+def _parse_axes(spec: str) -> dict[str, int]:
+    """``"data=4,model=2"`` -> ``{"data": 4, "model": 2}``."""
+    sizes: dict[str, int] = {}
+    for part in spec.split(","):
+        axis, sep, n = part.partition("=")
+        if not sep or not axis.strip() or not n.strip():
+            raise SystemExit(f"bad mesh axis spec {part!r} (want AXIS=N,...)")
+        sizes[axis.strip()] = int(n)
+    return sizes
+
+
+def _run_plan(args) -> int:
+    """Capacity planning without touching a device (``--plan``)."""
+    import json
+
+    from llm_consensus_tpu_torch.engine.engine import plan_memory
+    from llm_consensus_tpu_torch.models.configs import get_config
+
+    mesh_shape = _parse_axes(args.plan_mesh) if args.plan_mesh else {}
+    plan = plan_memory(
+        get_config(args.model),
+        quant=args.plan_quant,
+        kv_quant=args.plan_kv == "int8",
+        n_candidates=args.plan_n,
+        prompt_len=max(1, args.plan_context - args.max_new_tokens),
+        new_tokens=args.max_new_tokens,
+        mesh_shape=mesh_shape or None,
+        hbm_bytes=int(args.plan_hbm_gib * (1 << 30)),
+    )
+    gib = 1 << 30
+    out = {
+        "model": args.model,
+        "quant": args.plan_quant,
+        "kv_quant": args.plan_kv,
+        "n_candidates": args.plan_n,
+        "context": args.plan_context,
+        "mesh": mesh_shape or "single chip",
+        "params_gib": round(plan["params_bytes"] / gib, 2),
+        "kv_cache_gib": round(plan["kv_cache_bytes"] / gib, 2),
+        "total_gib": round(plan["total_bytes"] / gib, 2),
+        "hbm_gib": args.plan_hbm_gib,
+        "fits": plan["fits"],
+    }
+    print(json.dumps(out, indent=2))
+    return 0 if plan["fits"] else 1
 
 
 async def repl(coord: Coordinator, stream=None) -> None:
@@ -204,6 +294,8 @@ async def repl(coord: Coordinator, stream=None) -> None:
 def main(argv: list[str] | None = None) -> int:
     _init_logging()
     args = build_parser().parse_args(argv)
+    if args.plan:
+        return _run_plan(args)
     panel = load_panel(args.panel) if args.panel else default_panel()
     coord = Coordinator(
         panel,

@@ -1,6 +1,10 @@
 """Inference engine: tokenizer, sampler, batched generation loop."""
 
-from llm_consensus_tpu_torch.engine.engine import EngineConfig, InferenceEngine
+from llm_consensus_tpu_torch.engine.engine import (
+    EngineConfig,
+    InferenceEngine,
+    plan_memory,
+)
 from llm_consensus_tpu_torch.engine.generate import GenerateOutput, generate
 from llm_consensus_tpu_torch.engine.sampler import SamplerConfig, sample_token
 from llm_consensus_tpu_torch.engine.tokenizer import ByteTokenizer, Tokenizer
@@ -13,5 +17,6 @@ __all__ = [
     "SamplerConfig",
     "Tokenizer",
     "generate",
+    "plan_memory",
     "sample_token",
 ]

@@ -6,11 +6,12 @@ the batch up to a bucket), per-call generators and detokenization. It
 stands where the reference's ``call_gemini`` stood (``src/main.rs:82-86``),
 but batched.
 
-Weights may be quantized to int8 at init (``quant="int8"``) and the KV
-cache kept in int8 (``kv_quant``), as in the JAX package. Not ported yet:
-int4 weights, chunked prefill, the prefix cache, multi-token stop
-sequences, streaming, scoring, speculative decoding, meshes and the
-native batch encoder.
+Weights may be quantized to int8 or packed int4 at init (``quant``) and
+the KV cache kept in int8 (``kv_quant``), as in the JAX package.
+:meth:`InferenceEngine.memory_estimate` and :func:`plan_memory` are the
+JAX package's capacity planner for one card. Not ported yet: chunked
+prefill, the prefix cache, multi-token stop sequences, streaming,
+scoring, speculative decoding, meshes and the native batch encoder.
 """
 
 from __future__ import annotations
@@ -24,7 +25,7 @@ from llm_consensus_tpu_torch.engine.generate import GenerateOutput, generate
 from llm_consensus_tpu_torch.engine.sampler import SamplerConfig
 from llm_consensus_tpu_torch.engine.tokenizer import ByteTokenizer, Tokenizer
 from llm_consensus_tpu_torch.models.configs import ModelConfig
-from llm_consensus_tpu_torch.ops.quant import quantize_params
+from llm_consensus_tpu_torch.ops.quant import quantize_params, quantized_bytes
 from llm_consensus_tpu_torch.utils.device import resolve_device, to_device
 from llm_consensus_tpu_torch.utils.stops import (
     earliest_stop_cut,
@@ -39,6 +40,75 @@ def _next_bucket(n: int, buckets: tuple[int, ...]) -> int:
     return buckets[-1]
 
 
+def _kv_cache_bytes(
+    cfg: ModelConfig,
+    batch: int,
+    cache_len: int,
+    quant: bool,
+    slack: int = 0,
+    shared_len: int = 0,
+) -> int:
+    """KV-cache bytes for a generate call: the one copy of the cache
+    capacity formula (``memory_estimate`` and ``plan_memory`` both call
+    it).
+
+    ``shared_len``: prompt-prefix tokens stored once for the whole batch
+    instead of once per row (the paged serving path's shared pages: an
+    N-way fan-out holds prefix + N * suffix). 0 (the default) models the
+    engine's dense per-row cache, which duplicates the prefix.
+    """
+    shared_len = max(0, min(shared_len, cache_len))
+    tokens = batch * (cache_len + slack) - (batch - 1) * shared_len
+    slots = cfg.n_layers * tokens * cfg.n_kv_heads
+    if quant:
+        # int8 k+v + one f32 scale each per (slot, head)
+        return slots * (2 * cfg.head_dim + 2 * 4)
+    return slots * 2 * cfg.head_dim * 2  # bf16 k+v
+
+
+def _logits_bytes(cfg: ModelConfig, batch: int) -> int:
+    return batch * cfg.vocab_size * 4
+
+
+def _memory_plan(
+    cfg: ModelConfig,
+    params_bytes: int,
+    *,
+    seq_buckets: tuple[int, ...],
+    batch_buckets: tuple[int, ...],
+    n_candidates: int,
+    prompt_len: int,
+    new_tokens: int,
+    kv_quant: bool,
+    shared_prefix_len: int,
+    hbm_bytes: int | None,
+) -> dict:
+    """The terms of ``memory_estimate`` and ``plan_memory``: the engine's
+    bucketing of the batch and the prompt, the KV cache and logits of one
+    generate call at those shapes, and their total with the params."""
+    s = min(_next_bucket(prompt_len, seq_buckets), cfg.max_seq_len)
+    b = _next_bucket(n_candidates, batch_buckets)
+    cache_len = s + max(1, min(new_tokens, cfg.max_seq_len - s))
+    kv = _kv_cache_bytes(
+        cfg, b, cache_len, kv_quant, shared_len=min(shared_prefix_len, s)
+    )
+    logits = _logits_bytes(cfg, b)
+    out = {
+        "params_bytes": params_bytes,
+        "kv_cache_bytes": kv,
+        "logits_bytes": logits,
+        "total_bytes": params_bytes + kv + logits,
+        "batch": b,
+        "cache_len": cache_len,
+    }
+    if hbm_bytes is not None:
+        out["fits"] = out["total_bytes"] <= hbm_bytes
+    return out
+
+
+_QUANT_BITS = {"int8": 8, "int4": 4}
+
+
 @dataclass
 class EngineConfig:
     max_new_tokens: int = 256
@@ -48,8 +118,8 @@ class EngineConfig:
     batch_buckets: tuple[int, ...] = (1, 2, 4, 8, 16, 32, 64)
     sampler: SamplerConfig = field(default_factory=SamplerConfig)
     # Weight-only per-channel quantization at engine init (ops/quant.py):
-    # "int8" halves the weight bytes every decode step reads; "int4"
-    # waits for its kernel (K10) and raises.
+    # "int8" halves the weight bytes every decode step reads, "int4"
+    # (packed nibbles) halves them again at reduced precision.
     quant: str = "none"
     # int8 KV cache (models/cache.QuantKVCache): halves the cache bytes
     # every decode step reads.
@@ -90,13 +160,10 @@ class InferenceEngine:
                 f"vocab {cfg.vocab_size}"
             )
         self.config = engine_config or EngineConfig()
-        if self.config.quant == "int4":
-            raise NotImplementedError(
-                "quant='int4' needs the packed-int4 matmul kernel (K10), "
-                "which is not ported to PyTorch yet"
+        if self.config.quant in _QUANT_BITS:
+            self.params = quantize_params(
+                self.params, bits=_QUANT_BITS[self.config.quant]
             )
-        if self.config.quant == "int8":
-            self.params = quantize_params(self.params)
         elif self.config.quant != "none":
             raise ValueError(f"unknown quant mode {self.config.quant!r}")
         self._tokens_generated = 0
@@ -202,6 +269,39 @@ class InferenceEngine:
         )
         return self._trim_stops(self._collect(out, n_real), stop)
 
+    def memory_estimate(
+        self,
+        n_candidates: int = 1,
+        prompt_len: int = 128,
+        new_tokens: int | None = None,
+        hbm_bytes: int | None = None,
+        shared_prefix_len: int = 0,
+    ) -> dict:
+        """Device-memory estimate for a generate call at these shapes.
+
+        Bytes of the resident params (as stored, quantized leaves
+        included), of the KV cache the call would allocate (after the
+        engine's bucketing, honouring ``kv_quant``), of the float32
+        logits, and their total; ``fits`` when ``hbm_bytes`` is given.
+        ``shared_prefix_len``: prompt-prefix tokens stored once for every
+        candidate (the paged serving path); 0 models the engine's dense
+        per-row cache. The JAX package's draft and mesh terms do not
+        arise: the port's engine has neither a draft model nor a mesh.
+        """
+        c = self.config
+        return _memory_plan(
+            self.cfg,
+            quantized_bytes(self.params),
+            seq_buckets=c.seq_buckets,
+            batch_buckets=c.batch_buckets,
+            n_candidates=n_candidates,
+            prompt_len=prompt_len,
+            new_tokens=new_tokens or c.max_new_tokens,
+            kv_quant=c.kv_quant,
+            shared_prefix_len=shared_prefix_len,
+            hbm_bytes=hbm_bytes,
+        )
+
     @staticmethod
     def _trim_stops(results: list[EngineResult], stop: list[str] | None):
         """Cut each text at the earliest stop occurrence (stop removed);
@@ -232,3 +332,72 @@ class InferenceEngine:
                 )
             )
         return results
+
+
+def plan_memory(
+    cfg: ModelConfig,
+    *,
+    quant: str = "none",
+    kv_quant: bool = False,
+    n_candidates: int = 1,
+    prompt_len: int = 128,
+    new_tokens: int = 256,
+    mesh_shape: dict | None = None,
+    hbm_bytes: int | None = None,
+    seq_buckets: tuple[int, ...] | None = None,
+    batch_buckets: tuple[int, ...] | None = None,
+    shared_prefix_len: int = 0,
+    host_cache_bytes: int = 0,
+    page_size: int = 64,
+) -> dict:
+    """Config-only device-memory plan: no weights are allocated.
+
+    The companion of :meth:`InferenceEngine.memory_estimate` for models
+    too large to build first ("does llama3-8b at N = 64 fit one H100?").
+    Param bytes come from ``init_params`` and ``quantize_params`` on the
+    ``meta`` device (shapes and types only, leaf for leaf the JAX
+    package's ``eval_shape``). The KV and logits terms are
+    ``memory_estimate``'s, with the engine's bucketing of
+    ``n_candidates`` and ``prompt_len`` (``batch_buckets`` and
+    ``seq_buckets`` default to ``EngineConfig``'s).
+
+    ``host_cache_bytes`` > 0 adds the host tier of the serving path: how
+    many ``page_size``-token KV pages (this config's KV type, scales
+    included) that many bytes of host memory hold, and the prefix tokens
+    they buy. Host bytes never count against ``hbm_bytes``.
+
+    ``mesh_shape`` with an axis > 1 raises: sharded plans come with the
+    parallel slice. MoE configs raise, as ``init_params`` does.
+    """
+    from llm_consensus_tpu_torch.models.transformer import init_params
+
+    if any(v > 1 for v in (mesh_shape or {}).values()):
+        raise NotImplementedError(
+            "plan_memory over a mesh comes with the parallel slice (sharded "
+            "params over torch.distributed), which is not ported yet"
+        )
+    tree = init_params(cfg, dtype=torch.bfloat16, device="meta")
+    if quant in _QUANT_BITS:
+        tree = quantize_params(tree, bits=_QUANT_BITS[quant])
+
+    dflt = EngineConfig()
+    out = _memory_plan(
+        cfg,
+        quantized_bytes(tree),
+        seq_buckets=seq_buckets if seq_buckets is not None else dflt.seq_buckets,
+        batch_buckets=batch_buckets if batch_buckets is not None else dflt.batch_buckets,
+        n_candidates=n_candidates,
+        prompt_len=prompt_len,
+        new_tokens=new_tokens,
+        kv_quant=kv_quant,
+        shared_prefix_len=shared_prefix_len,
+        hbm_bytes=hbm_bytes,
+    )
+    if host_cache_bytes > 0:
+        page_bytes = _kv_cache_bytes(cfg, 1, page_size, kv_quant)
+        host_pages = host_cache_bytes // max(1, page_bytes)
+        out["host_cache_bytes"] = host_cache_bytes
+        out["host_page_bytes"] = page_bytes
+        out["host_capacity_pages"] = host_pages
+        out["host_capacity_tokens"] = host_pages * page_size
+    return out

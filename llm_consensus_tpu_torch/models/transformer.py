@@ -1,9 +1,10 @@
 """Pre-norm GQA transformer (Llama family), dense models, in PyTorch.
 
 Counterpart of ``llm_consensus_tpu.models.transformer`` for dense models
-with bf16 or int8 weights and a bf16 or int8 KV cache: the same parameter
-tree (layers stacked on a leading axis, int8 leaves as
-:class:`~llm_consensus_tpu_torch.ops.quant.QuantizedTensor`), the same
+with bf16, int8 or int4 weights and a bf16 or int8 KV cache: the same
+parameter tree (layers stacked on a leading axis, quantized leaves as
+:class:`~llm_consensus_tpu_torch.ops.quant.QuantizedTensor` or
+``Quantized4Tensor``), the same
 ``[B, S, H, D]`` layouts, the same float32 norms, softmax and logits.
 Differences by design:
 
@@ -12,8 +13,8 @@ Differences by design:
 - The KV cache is written in place (see :mod:`.cache`).
 - ``cfg.use_pallas`` routes RMSNorm and attention through the
   hand-written kernels of :mod:`llm_consensus_tpu_torch.ops.kernels`;
-  int8 weights go through the W8A16 kernel by shape, as in the JAX
-  package (:func:`~llm_consensus_tpu_torch.ops.quant.matmul`).
+  int8 and int4 weights go through the W8A16 and W4A16 kernels by shape
+  (:func:`~llm_consensus_tpu_torch.ops.quant.matmul`).
 
 MoE, sliding windows, ring attention, the speculative verify step and
 the chunk mode are not ported yet; the entry points raise on configs that
@@ -47,7 +48,13 @@ from llm_consensus_tpu_torch.ops.attention import (
     ragged_paged_attention_reference,
 )
 from llm_consensus_tpu_torch.ops.norms import rms_norm
-from llm_consensus_tpu_torch.ops.quant import QuantizedTensor, leaves, quantize_params
+from llm_consensus_tpu_torch.ops.quant import (
+    QUANT_LEAVES,
+    Quantized4Tensor,
+    QuantizedTensor,
+    leaves,
+    quantize_params,
+)
 from llm_consensus_tpu_torch.ops.quant import matmul as _qmm
 from llm_consensus_tpu_torch.ops.rope import apply_rope, rope_cos_sin
 from llm_consensus_tpu_torch.utils.device import resolve_device, to_device
@@ -150,12 +157,17 @@ def init_params(
     biases zeros, drawn in the same order. ``generator``: a
     ``torch.Generator`` on ``device``, or an int seed for one. The
     numbers differ from the JAX package's for the same seed (another
-    generator); carry JAX weights over with :func:`params_from_jax`."""
+    generator); carry JAX weights over with :func:`params_from_jax`.
+    ``device="meta"`` gives the tree's shapes and types and allocates
+    nothing (the capacity planner's use; ``generator`` is unused)."""
     dev = resolve_device(device)
-    if isinstance(generator, int):
+    meta = dev.type == "meta"
+    if isinstance(generator, int) and not meta:
         generator = torch.Generator(device=dev).manual_seed(generator)
 
     def normal(shape, scale=0.02):
+        if meta:
+            return torch.empty(shape, dtype=dtype, device=dev)
         w = torch.randn(shape, generator=generator, device=dev, dtype=torch.float32)
         return (w * scale).to(dtype)
 
@@ -209,9 +221,10 @@ def init_params_quantized(
     dtype=torch.bfloat16,
     device: str | torch.device | None = None,
 ) -> dict:
-    """Init on the CPU, quantize there, then move to ``device``: the
-    card only ever holds the int8 leaves, never the full-width ones.
-    ``generator`` is a CPU generator or an int seed for one."""
+    """Init on the CPU, quantize there (``bits`` 8 or 4), then move to
+    ``device``: the card only ever holds the quantized leaves, never the
+    full-width ones. ``generator`` is a CPU generator or an int seed for
+    one."""
     dev = resolve_device(device)
     params = quantize_params(init_params(cfg, generator, dtype, "cpu"), bits=bits)
     return to_device(params, dev)
@@ -232,15 +245,23 @@ def params_from_jax(
     """Carry a JAX parameter tree (leaves as numpy arrays, e.g. from
     ``jax.tree.map(np.asarray, params)``) over to tensors: the same tree,
     moved to ``device`` and, when ``dtype`` is given, cast to it. A node
-    with ``.q`` and ``.scale`` (the JAX package's quantized leaf) becomes
-    a :class:`QuantizedTensor`, its int8 and float32 kept as they are."""
+    with ``.q`` and ``.scale`` (the JAX package's quantized leaves) keeps
+    its int8 and float32 as they are: a ``Quantized4Tensor`` becomes a
+    :class:`Quantized4Tensor`, any other a :class:`QuantizedTensor`. The
+    type's name tells them apart, not the shape: a packed ``[K/2, N]`` and
+    an int8 ``[K', N]`` can look alike."""
     dev = resolve_device(device)
 
     def conv(node):
         if isinstance(node, dict):
             return {k: conv(v) for k, v in node.items()}
         if hasattr(node, "q") and hasattr(node, "scale"):
-            return QuantizedTensor(
+            cls = (
+                Quantized4Tensor
+                if type(node).__name__ == "Quantized4Tensor"
+                else QuantizedTensor
+            )
+            return cls(
                 q=_leaf_to_tensor(node.q, dev, None),
                 scale=_leaf_to_tensor(node.scale, dev, None),
             )
@@ -251,6 +272,14 @@ def params_from_jax(
 
 def param_count(params: dict) -> int:
     return sum(t.numel() for t in leaves(params))
+
+
+def _layer_params(blocks: dict, layer: int) -> dict:
+    """Layer ``layer``'s views of the stacked block weights."""
+    return {
+        name: leaf.layer(layer) if isinstance(leaf, QUANT_LEAVES) else leaf[layer]
+        for name, leaf in blocks.items()
+    }
 
 
 # ---------------------------------------------------------------------------
@@ -388,10 +417,7 @@ def _run_layers(
     bufs = () if cache is None else cache.leaves
     stacked_decode = _STACKED_DECODE and mode == "decode" and len(bufs) == 4
     for layer in range(cfg.n_layers):
-        p = {
-            name: leaf.layer(layer) if isinstance(leaf, QuantizedTensor) else leaf[layer]
-            for name, leaf in blocks.items()
-        }
+        p = _layer_params(blocks, layer)
         kv_layer = tuple(t[layer] for t in bufs) or None
         x = _block(
             cfg, p, x, cos, sin, kv_layer, mode, valid_len, positions,
@@ -404,7 +430,7 @@ def _run_layers(
 def _unembed(cfg: ModelConfig, params: dict, x: torch.Tensor) -> torch.Tensor:
     """Final norm and float32 logits (bf16 operands multiply exactly in
     float32, as the JAX package's preferred_element_type=float32; an int8
-    lm_head goes through the W8A16 kernel with a float32 output)."""
+    or int4 lm_head goes through its kernel with a float32 output)."""
     x = _rms(cfg, x, params["norm_f"])
     if cfg.tie_embeddings:
         return x.float() @ params["embed"].float().T
@@ -577,10 +603,7 @@ def _paged_layers(cfg: ModelConfig, params: dict, x, cos, sin, cache, attend):
     returns the attention output [..., H, D] shaped like q."""
     blocks = params["blocks"]
     for layer in range(cfg.n_layers):
-        p = {
-            name: leaf.layer(layer) if isinstance(leaf, QuantizedTensor) else leaf[layer]
-            for name, leaf in blocks.items()
-        }
+        p = _layer_params(blocks, layer)
         h = _rms(cfg, x, p["attn_norm"])
         q, k, v = _project_qkv(cfg, p, h)
         q = apply_rope(q, cos, sin)

@@ -22,6 +22,8 @@ launches and nothing else.
 - K8 :func:`~.ragged_attention.ragged_paged_attention` and its thin
   wrappers ``paged_decode_attention`` and
   ``paged_decode_attention_grouped`` (``csrc/ragged_paged_attention.cu``)
+- K10 :func:`~.quant_matmul.quant4_matmul_2d`, the packed-int4 matmul
+  (``csrc/quant_matmul.cu``)
 """
 
 from llm_consensus_tpu_torch.ops.kernels.attention import (
@@ -34,7 +36,10 @@ from llm_consensus_tpu_torch.ops.kernels.attention import (
     flash_decode_attention_shared_prefix_q8_stacked,
 )
 from llm_consensus_tpu_torch.ops.kernels.norms import fused_rms_norm
-from llm_consensus_tpu_torch.ops.kernels.quant_matmul import quant_matmul_2d
+from llm_consensus_tpu_torch.ops.kernels.quant_matmul import (
+    quant4_matmul_2d,
+    quant_matmul_2d,
+)
 from llm_consensus_tpu_torch.ops.kernels.ragged_attention import (
     paged_decode_attention,
     paged_decode_attention_grouped,
@@ -52,6 +57,7 @@ KERNELS = (
     flash_decode_attention_shared_prefix_q8,
     flash_decode_attention_shared_prefix_q8_stacked,
     ragged_paged_attention,
+    quant4_matmul_2d,
 )
 
 
@@ -72,6 +78,7 @@ __all__ = [
     "fused_rms_norm",
     "paged_decode_attention",
     "paged_decode_attention_grouped",
+    "quant4_matmul_2d",
     "quant_matmul_2d",
     "ragged_paged_attention",
     "reset_launch_counts",

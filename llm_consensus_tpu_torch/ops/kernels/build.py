@@ -45,6 +45,7 @@ _SIGNATURES = {
     "lct_shared_prefix_attention_q8": (
         _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _P),
     "lct_quant_matmul": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    "lct_quant4_matmul": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     "lct_ragged_paged_attention": (
         _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
         _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _I, _I, _P),

@@ -1,11 +1,12 @@
-"""Weight-only int8 quantization (per-output-channel, symmetric).
+"""Weight-only int8 and int4 quantization (per-output-channel, symmetric).
 
-Counterpart of ``llm_consensus_tpu.ops.quant`` for int8 weights. Decode
-is bound by the bytes it reads, and every generated token re-reads every
-weight, so int8 weights halve that floor. Each large matmul weight is
-stored as an int8 tensor beside a float32 scale per output channel; the
-same rounding as the JAX package (amax / 127, round half to even, clip to
-±127) gives the same bits.
+Counterpart of ``llm_consensus_tpu.ops.quant``. Decode is bound by the
+bytes it reads, and every generated token re-reads every weight, so int8
+weights halve that floor and packed int4 weights halve it again. Each
+large matmul weight is stored as an int8 tensor (two nibbles a byte for
+int4) beside a float32 scale per output channel; the same rounding as the
+JAX package (amax / 127 or amax / 7, round half to even, clip to ±127 or
+[-8, 7]) gives the same bits.
 
 :func:`matmul` routes as the JAX package does: an int8 leaf goes through
 the hand-written W8A16 kernel (K6, :mod:`.kernels.quant_matmul`) whenever
@@ -13,13 +14,12 @@ the hand-written W8A16 kernel (K6, :mod:`.kernels.quant_matmul`) whenever
 and is otherwise dequantized into ``x``'s type and multiplied by
 ``torch.matmul``, a large product (a long prefill) that the JAX package
 also leaves outside any kernel. The choice is made from shapes before
-anything launches.
+anything launches. A packed int4 leaf goes the same way through the
+W4A16 kernel (K10) under ``quant4_matmul_supported``.
 
 The JAX package's ``StackedQuant`` is not needed: it exists because a
 Pallas operand must be a whole buffer, while here the layer loop passes
 ``w.q[l]`` and ``w.scale[l]``, zero-copy views, straight to the kernel.
-Packed int4 weights (``bits=4``) wait for the port of their kernel (K10)
-and raise.
 """
 
 from __future__ import annotations
@@ -30,9 +30,13 @@ from dataclasses import dataclass
 import torch
 
 from llm_consensus_tpu_torch.ops.kernels.quant_matmul import (
+    quant4_matmul_2d,
+    quant4_matmul_2d_plain,
+    quant4_matmul_supported,
     quant_matmul_2d,
     quant_matmul_2d_plain,
     quant_matmul_supported,
+    unpack4,
 )
 
 # Weight leaves that get quantized, with the axis of the contraction
@@ -87,17 +91,80 @@ def dequantize(qt: QuantizedTensor, dtype=torch.bfloat16) -> torch.Tensor:
     return qt.q.to(dtype) * qt.scale.to(dtype)
 
 
+@dataclass
+class Quantized4Tensor:
+    """int4 weight (two nibbles a byte) + float32 per-output-channel scale.
+
+    Packing contract (the JAX package's): the contraction axis is the
+    second-to-last axis of the logical weight; rows [0, K/2) live in the
+    low nibbles and rows [K/2, K) in the high ones, so ``q``'s
+    contraction dim is K/2 and unpacking is a concatenation.
+    """
+
+    q: torch.Tensor  # int8 carrying two int4; contraction dim halved
+    scale: torch.Tensor  # float32, logical shape with contraction dim = 1
+
+    @property
+    def shape(self):  # logical (unpacked) shape
+        s = list(self.q.shape)
+        s[-2] *= 2
+        return torch.Size(s)
+
+    @property
+    def ndim(self):
+        return self.q.ndim
+
+    def layer(self, i: int) -> "Quantized4Tensor":
+        """Layer ``i`` of a stacked [L, K/2, N] weight, as views."""
+        return Quantized4Tensor(q=self.q[i], scale=self.scale[i])
+
+    def to(self, device) -> "Quantized4Tensor":
+        return Quantized4Tensor(q=self.q.to(device), scale=self.scale.to(device))
+
+
+# The quantized leaf types: what the layer loops take ``.layer(i)`` of.
+QUANT_LEAVES = (QuantizedTensor, Quantized4Tensor)
+
+
+def quantize_tensor4(w: torch.Tensor, axis: int) -> Quantized4Tensor:
+    """Symmetric per-channel int4: q = round(w / s) in [-8, 7], s = amax / 7,
+    packed along ``axis``, which must be the second-to-last and even."""
+    if axis % w.ndim != w.ndim - 2:
+        raise ValueError(
+            f"int4 packs along axis -2; got axis {axis} for rank {w.ndim}"
+        )
+    k = w.shape[axis]
+    if k % 2:
+        raise ValueError(f"contraction dim {k} must be even for int4")
+    w32 = w.float()
+    amax = w32.abs().amax(dim=axis, keepdim=True)
+    scale = torch.clamp(amax, min=1e-8) / 7.0
+    q = torch.clamp(torch.round(w32 / scale), -8, 7).to(torch.int32)
+    low, high = torch.split(q, k // 2, dim=axis)
+    packed = ((low & 0xF) | ((high & 0xF) << 4)).to(torch.int8)
+    return Quantized4Tensor(q=packed, scale=scale)
+
+
+def dequantize4(qt: Quantized4Tensor, dtype=torch.bfloat16) -> torch.Tensor:
+    """The weight in ``dtype``: the nibbles unpacked into it, times the
+    scale cast to it (the JAX package's order of roundings)."""
+    return unpack4(qt.q, dtype) * qt.scale.to(dtype)
+
+
 def maybe_dequantize(leaf, dtype=torch.bfloat16):
     """Pass-through for plain tensors; dequantize quantized leaves."""
     if isinstance(leaf, QuantizedTensor):
         return dequantize(leaf, dtype)
+    if isinstance(leaf, Quantized4Tensor):
+        return dequantize4(leaf, dtype)
     return leaf
 
 
-# Kernel switch, the JAX package's own: None = the kernel for CUDA
-# tensors at supported shapes (the twin for CPU tensors); False = the
+# Kernel switches, the JAX package's own names: None = the kernel for
+# CUDA tensors at supported shapes (the twin for CPU tensors); False = the
 # plain twin everywhere; True = the kernel, raising on a CPU tensor.
 _FORCE_KERNEL: bool | None = None
+_FORCE_KERNEL4: bool | None = None
 
 
 def set_kernel_enabled(enabled: bool | None) -> None:
@@ -106,31 +173,52 @@ def set_kernel_enabled(enabled: bool | None) -> None:
     _FORCE_KERNEL = enabled
 
 
+def set_kernel4_enabled(enabled: bool | None) -> None:
+    """Force the int4 matmul kernel (K10) on or off; None restores the
+    default, the kernel for CUDA tensors.
+
+    The JAX package keeps its int4 kernel opt-in (default off) because of
+    Mosaic compile times on one TPU toolchain, a workaround for the TPU's
+    compiler and not part of the semantics. Here K10 is a CUDA kernel
+    built once, so int4 routes as int8 does: an int4 path that quietly
+    dequantized to cuBLAS would run no kernel of its own.
+    """
+    global _FORCE_KERNEL4
+    _FORCE_KERNEL4 = enabled
+
+
 def matmul(x: torch.Tensor, leaf, out_dtype: torch.dtype | None = None) -> torch.Tensor:
     """``x [..., K] @ leaf [K, N]``, quantization-aware.
 
     Plain tensors use ``torch.matmul``. A 2-D :class:`QuantizedTensor`
     goes through K6 when ``quant_matmul_supported(M, K, N)`` holds, M the
-    product of x's leading dimensions; otherwise it is dequantized into
-    x's type first. ``out_dtype``: the result's type (the lm_head asks
-    for float32, computed from float32 operands).
+    product of x's leading dimensions, a 2-D :class:`Quantized4Tensor`
+    through K10 when ``quant4_matmul_supported(M, K, N)`` holds (K the
+    logical contraction dim); otherwise the leaf is dequantized into x's
+    type first. ``out_dtype``: the result's type (the lm_head asks for
+    float32, computed from float32 operands).
     """
-    if isinstance(leaf, QuantizedTensor):
-        k, n = leaf.q.shape
+    if isinstance(leaf, QUANT_LEAVES):
+        int4 = isinstance(leaf, Quantized4Tensor)
+        k, n = leaf.shape
         lead = x.shape[:-1]
         m = math.prod(lead)
-        if quant_matmul_supported(m, k, n):
+        if (quant4_matmul_supported if int4 else quant_matmul_supported)(m, k, n):
             x2 = x.reshape(m, k).contiguous()
-            if _FORCE_KERNEL is False:
-                out = quant_matmul_2d_plain(x2, leaf.q, leaf.scale, out_dtype)
+            force = _FORCE_KERNEL4 if int4 else _FORCE_KERNEL
+            if force is False:
+                plain = quant4_matmul_2d_plain if int4 else quant_matmul_2d_plain
+                out = plain(x2, leaf.q, leaf.scale, out_dtype)
             else:
-                if _FORCE_KERNEL and not x.is_cuda:
+                if force and not x.is_cuda:
                     raise RuntimeError(
-                        "the int8 matmul kernel is forced on but x lies on the CPU"
+                        f"the {'int4' if int4 else 'int8'} matmul kernel is forced "
+                        "on but x lies on the CPU"
                     )
-                out = quant_matmul_2d(x2, leaf.q, leaf.scale, out_dtype)
+                kernel = quant4_matmul_2d if int4 else quant_matmul_2d
+                out = kernel(x2, leaf.q, leaf.scale, out_dtype)
             return out.reshape(*lead, n)
-        w = dequantize(leaf, x.dtype)
+        w = maybe_dequantize(leaf, x.dtype)
     else:
         w = leaf
     if out_dtype is not None:
@@ -144,27 +232,24 @@ def quantize_params(
     """Quantize the large matmul weights of an ``init_params`` tree.
 
     Norms, biases and the embedding gather table keep their type.
-    ``bits=4`` (packed int4) raises until its kernel (K10) is ported.
+    ``bits``: 8 (int8, amax / 127) or 4 (packed int4, amax / 7). Leaves
+    that are already quantized stay as they are.
     """
-    if bits == 4:
-        raise NotImplementedError(
-            "int4 weights need the packed-int4 matmul kernel (K10), which "
-            "is not ported to PyTorch yet"
-        )
-    if bits != 8:
+    if bits not in (8, 4):
         raise ValueError(f"bits must be 8 or 4, got {bits}")
+    qfn = quantize_tensor if bits == 8 else quantize_tensor4
     out = dict(params)
     blocks = dict(params["blocks"])
     for name, w in blocks.items():
-        if name in _QUANT_AXES_DENSE and not isinstance(w, QuantizedTensor):
-            blocks[name] = quantize_tensor(w, _QUANT_AXES_DENSE[name])
+        if name in _QUANT_AXES_DENSE and not isinstance(w, QUANT_LEAVES):
+            blocks[name] = qfn(w, _QUANT_AXES_DENSE[name])
     out["blocks"] = blocks
     if (
         quantize_lm_head
         and "lm_head" in params
-        and not isinstance(params["lm_head"], QuantizedTensor)
+        and not isinstance(params["lm_head"], QUANT_LEAVES)
     ):
-        out["lm_head"] = quantize_tensor(params["lm_head"], axis=0)
+        out["lm_head"] = qfn(params["lm_head"], axis=0)
     return out
 
 
@@ -174,7 +259,7 @@ def leaves(node):
     if isinstance(node, dict):
         for v in node.values():
             yield from leaves(v)
-    elif isinstance(node, QuantizedTensor):
+    elif isinstance(node, QUANT_LEAVES):
         yield node.q
         yield node.scale
     else:
@@ -182,5 +267,6 @@ def leaves(node):
 
 
 def quantized_bytes(params) -> int:
-    """Total parameter bytes as stored (int8 + scales count as-is)."""
+    """Total parameter bytes as stored (int8, packed int4 and scales count
+    as they are)."""
     return sum(t.numel() * t.element_size() for t in leaves(params))

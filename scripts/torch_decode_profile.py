@@ -1,11 +1,11 @@
 #!/usr/bin/env python3
 """Where the port's generate time goes on the card: device busy share and
 device time by kernel, for llama-1b (random weights, seed 0) in bf16, or
-with ``--int8`` on the int8 path (weights quantized at engine init, int8
-KV cache).
+with ``--int8`` / ``--int4`` on the int8 / int4 path (weights quantized
+at engine init, int8 KV cache; K6 / K10 carry the projections).
 
-    python3 scripts/torch_decode_profile.py [--n 64] [--new-tokens 32] [--int8]
-    python3 scripts/torch_decode_profile.py --serve [--low-load]
+    python3 scripts/torch_decode_profile.py [--n 64] [--new-tokens 32] [--int8 | --int4]
+    python3 scripts/torch_decode_profile.py --serve [--low-load] [--int8 | --int4]
 
 ``--serve`` profiles the serving path instead: ``chip_smoke.py``'s
 32-request burst (``chip_smoke.serving_burst``, another seed each run)
@@ -59,8 +59,11 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--n", type=int, default=64)
     ap.add_argument("--new-tokens", type=int, default=32)
-    ap.add_argument("--int8", action="store_true",
-                    help="int8 weights and an int8 KV cache")
+    bits = ap.add_mutually_exclusive_group()
+    bits.add_argument("--int8", action="store_true",
+                      help="int8 weights and an int8 KV cache")
+    bits.add_argument("--int4", action="store_true",
+                      help="packed int4 weights and an int8 KV cache")
     ap.add_argument("--serve", action="store_true",
                     help="the serving burst through the continuous batcher")
     ap.add_argument("--low-load", action="store_true",
@@ -76,7 +79,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("needs a CUDA card", file=sys.stderr)
         return 1
-    quant = dict(quant="int8", kv_quant=True) if args.int8 else {}
+    weights = "int8" if args.int8 else "int4" if args.int4 else "bf16"
+    quant = {} if weights == "bf16" else dict(quant=weights, kv_quant=True)
     if args.serve:
         from chip_smoke import SERVE_SLOTS, serving_burst
         from llm_consensus_tpu_torch.models.transformer import init_params
@@ -84,10 +88,10 @@ def main() -> int:
 
         cfg = get_config("llama-1b")
         params = init_params(cfg, 0, dtype=torch.bfloat16, device="cuda")
-        if args.int8:  # int8 weights; the serving pool stays bf16
+        if quant:  # quantized weights; the serving pool stays bf16
             from llm_consensus_tpu_torch.ops.quant import quantize_params
 
-            params = quantize_params(params)
+            params = quantize_params(params, bits=8 if args.int8 else 4)
         batcher = ContinuousBatcher(cfg, params, config=ContinuousConfig(max_slots=SERVE_SLOTS))
         seeds = iter(range(3))
         burst_kw = {}
@@ -146,7 +150,7 @@ def main() -> int:
     print(json.dumps({
         "card": torch.cuda.get_device_name(0),
         "path": ("serve " if args.serve else "") + ("low load " if args.low_load else "")
-        + ("int8" if args.int8 else "bf16"),
+        + weights,
         "n": len(out) if args.serve else args.n,
         "new_tokens": None if args.serve else args.new_tokens,
         **serve,

@@ -154,14 +154,15 @@ def test_single_token_stop_ends_rows_and_trims_like_jax(engines):
 
 
 def test_multi_token_stops_and_quant_are_not_ported(engines):
-    """Multi-token stops and int4 weights (its kernel, K10) are not
-    ported yet and raise; int8 is ported (tests/test_torch_quant.py)."""
+    """Multi-token stops are not ported yet and raise; int8 and int4
+    weights are ported (tests/test_torch_quant.py, tests/test_torch_int4.py):
+    quant="int4" packs the weights at init."""
     _, teng = engines
     with pytest.raises(NotImplementedError):
         teng.generate_texts(["hi"], stop=["\n\n"])
-    with pytest.raises(NotImplementedError, match="K10"):
-        InferenceEngine(teng.cfg, teng.params, engine_config=EngineConfig(quant="int4"),
-                        device="cpu")
+    eng4 = InferenceEngine(teng.cfg, teng.params, engine_config=EngineConfig(quant="int4"),
+                           device="cpu")
+    assert type(eng4.params["blocks"]["wq"]).__name__ == "Quantized4Tensor"
 
 
 def test_engine_without_device_raises_without_cuda(monkeypatch):

@@ -286,12 +286,14 @@ def test_cpu_twin_path_counts_no_launch():
         q[:, :1], kq8[None], ks[None], kq8[None], ks[None], vl, 2, 0)
     kq.quant_matmul_2d(torch.ones(2, 128), torch.ones(128, 128, dtype=torch.int8),
                        torch.ones(1, 128))
+    kq.quant4_matmul_2d(torch.ones(2, 128), torch.ones(64, 128, dtype=torch.int8),
+                        torch.ones(1, 128))
     pool = torch.ones(3, 4, 2, 16)
     kernels.ragged_paged_attention(
         q[0, :2], pool, pool, torch.ones(2, 2, dtype=torch.int32),
         torch.tensor([3, 0], dtype=torch.int32),
         q_chunk=q[0], chunk_table=torch.tensor([2, 1], dtype=torch.int32), chunk_start=1)
-    assert len(kernels.KERNELS) == 10
+    assert len(kernels.KERNELS) == 11
     assert [fn.launches for fn in kernels.KERNELS] == [0] * len(kernels.KERNELS)
 
 

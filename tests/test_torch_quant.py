@@ -123,9 +123,12 @@ def test_quantize_tensor_and_kv_bit_identical_with_ties():
 
 
 def test_int4_and_unknown_bits_raise():
+    """int4 (K10, ported) packs; unknown bit widths raise. The int4 path's
+    parity with the JAX package is tests/test_torch_int4.py's."""
     params = {"blocks": {"wq": torch.zeros(1, 4, 4)}}
-    with pytest.raises(NotImplementedError, match="K10"):
-        quant.quantize_params(params, bits=4)
+    q4 = quant.quantize_params(params, bits=4)["blocks"]["wq"]
+    assert isinstance(q4, quant.Quantized4Tensor)
+    assert q4.q.shape == (1, 2, 4) and q4.shape == (1, 4, 4)
     with pytest.raises(ValueError):
         quant.quantize_params(params, bits=3)
 
@@ -504,13 +507,14 @@ def test_engine_quantizes_at_init_and_int8_init_matches():
 
 
 def test_cli_int8_question_runs_and_int4_raises(capsys):
+    """Both quantized modes answer a question (int4 no longer raises:
+    K10 is ported)."""
     from llm_consensus_tpu_torch import cli
 
     args = ["--backend", "local", "--cpu", "--model", "test-tiny", "--max-new-tokens", "4",
             "--max-rounds", "1", "--seed", "1", "--question", "hi"]
     assert cli.main(args + ["--quant", "int8"]) == 0
-    with pytest.raises(NotImplementedError, match="K10"):
-        cli.main(args + ["--quant", "int4"])
+    assert cli.main(args + ["--quant", "int4"]) == 0
 
 
 # ---------------------------------------------------------------------------
