@@ -71,6 +71,25 @@ nothing of JAX or of the JAX package. Phases:
    greedy serving burst over the batcher's bf16 pool,
    kernels against plain, at pipeline depth 1 and 2 with the fused step
    on and off; and finite outputs of phases 3 and 4.
+6. dp2 x mp2 serving on one card: the kernel library built in phase 1,
+   the parent computes the single-card references, then starts a world of
+   4 ranks on cuda:0 with the port's launcher over ``gloo`` (NCCL refuses
+   two ranks on one device; gloo carries CUDA tensors through host
+   memory). (a) K9 (``ragged_paged_attention_sharded``) on every rank
+   against its twin and against the unsharded K8 on the global inputs, on
+   the cases of ``K9_CASES`` at the mesh batcher's per-rank shapes (8
+   rows, 256 pages of 64, 8 heads, 4 kv heads): the chunk lane owned by
+   either shard, a group whose members are all on the other shard, NULL
+   rows, a window; the fused case timed. (b) llama-1b at full width and
+   depth: the paged steps on float32 weights against the single card's
+   logits, and a greedy burst of 8 requests through the mesh batcher
+   against the single card's text (a difference only at an argmax
+   near-tie, reported with its gap); the same burst on bf16 and on int8
+   weights (K6 must launch). (c) The 32-request burst on bf16 weights:
+   requests/s, tokens/s, ms per iteration, K9 launches per rank, prefix
+   pages shared per shard and the share of rank 0's wall spent in
+   collectives, all labelled as 4 ranks on one card over gloo. A rank that
+   fails, times out or disagrees fails the run.
 
 Any failure raises (exit code != 0). The last four lines are the
 ``serving`` JSON (with the ``plan`` check's numbers), the ``kernels``
@@ -1185,6 +1204,556 @@ def serving_reference_check(torch, cfg_full, kernels):
 
 
 # ---------------------------------------------------------------------------
+# Phase 6: dp2 x mp2 serving on one card
+# ---------------------------------------------------------------------------
+
+# The mesh of phase 6: 4 ranks, all on cuda:0. NCCL refuses two ranks on
+# one device, so the ranks use gloo, which carries CUDA tensors through
+# host memory: every rank's kernels, pool and weight shard are real and on
+# the card, the collectives are slow. Its numbers are per-rank device work
+# and correctness, never a 4-card number.
+MESH = {"data": 2, "model": 2}
+MESH_BACKEND = "gloo"
+MESH_DEADLINE_S = 700.0
+# K9 at the mesh batcher's per-rank shapes (ContinuousConfig(max_slots=
+# SERVE_SLOTS): 16 slots, 512 pages of 64, tables of 32): globally 16
+# decode rows over 512 pages, per rank 8 rows, 256 pages, 8 query heads and
+# 4 kv heads of 128. Rows [0, 8) and their pages live on data shard 0, rows
+# [8, 16) on shard 1. (label, kwargs); the "fused" case is reported.
+K9_CASES = (
+    ("16 rows, lengths 70-1500, a NULL-table row on each shard",
+     dict(null_rows=(3, 12))),
+    ("2 groups sharing a 256-token run, one per shard", dict(groups=2)),
+    ("fused: 16 grouped rows + a 64-token chunk at 256 owned by shard 1",
+     dict(groups=2, chunk=64)),
+    ("a chunk at 256 owned by shard 0, dead decode rows only",
+     dict(chunk=64, dead=True, chunk_shard=0)),
+    ("4 verify rows of NQ=4", dict(b=4, nq=4)),
+    ("window 256", dict(window=256)),
+    ("fused, window 256", dict(groups=2, chunk=64, window=256)),
+)
+K9_REPORTED = K9_CASES[2][0]
+# Parity (phase 6b): a logit may differ from the single card's by float32
+# reordering (TP sums partials in another order), ~1e-5 at llama-1b's
+# magnitudes; 1e-3 is well above that and far below the ~0.2 typical gap
+# between the two largest logits of a random-weight model. A text
+# difference is accepted only at an argmax near-tie: a gap below
+# NEAR_TIE between the two tokens on the single card.
+STEP_LOGIT_TOL = 1e-3
+NEAR_TIE = 2e-3
+
+
+def in_turns(mesh, fn):
+    """``fn()`` on each rank in turn while the others wait (the card's
+    time is then this rank's alone); returns this rank's value."""
+    out = None
+    for r in range(mesh.config.size):
+        if mesh.rank == r:
+            out = fn()
+        mesh.barrier()
+    return out
+
+
+def k9_rank_cases(torch, mesh, cfg, timer):
+    """Phase 6a on this rank: K9 (kernel) against its twin on this rank's
+    shard, and against the unsharded K8 kernel on the global inputs (this
+    rank's block of its output), every case of ``K9_CASES`` in three
+    (query, pool) type pairs; the reported case timed."""
+    import torch.nn.functional as F
+
+    from llm_consensus_tpu_torch.ops.kernels import ragged_attention as kr
+
+    dp, mp = mesh.size("data"), mesh.size("model")
+    d, m = mesh.index("data"), mesh.index("model")
+    h, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    pg, P, n_pages = K8_PG, K8_P, 512
+    lp, hl, kl = n_pages // dp, h // mp, hkv // mp
+
+    def case(seed, label, dtype, kv_dtype, b=16, nq=0, groups=0, chunk=0, cstart=256,
+             window=0, dead=False, null_rows=(), chunk_shard=1):
+        # The same global inputs on every rank (one seed, one card).
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+
+        def randn(*shape, dtype):
+            return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+        def pages_of(shard, shape):
+            return (shard * lp + 1 + torch.randint(
+                0, lp - 1, shape, generator=gen, device="cuda")).int()
+
+        bl = b // dp
+        kp = randn(n_pages, pg, hkv, dh, dtype=kv_dtype)
+        vp = randn(n_pages, pg, hkv, dh, dtype=kv_dtype)
+        tbl = torch.cat([pages_of(s, (bl, P)) for s in range(dp)]).contiguous()
+        ctbl = pages_of(chunk_shard, (P,)).contiguous()
+        vl = torch.randint(70, 1501, (b,), generator=gen, device="cuda", dtype=torch.int32)
+        sst = torch.zeros(b, dtype=torch.int32, device="cuda")
+        kw = dict(window=window)
+        run = 256
+        if groups:
+            per = b // groups
+            for gi in range(groups):  # members map the first member's run
+                tbl[gi * per:(gi + 1) * per, :run // pg] = tbl[gi * per, :run // pg]
+            vl = torch.clamp(vl, min=run + 1)
+            sst.fill_(run)
+            kw["groups"] = ((torch.arange(b, device="cuda") // per).int(),
+                            (torch.arange(groups, device="cuda") * per).int(),
+                            torch.full((groups,), run, dtype=torch.int32, device="cuda"), sst)
+        for r in (range(b) if dead else null_rows):
+            tbl[r] = 0  # the global NULL page; length 0: nothing to read
+            vl[r] = 0
+        q = randn(*((b, nq, h, dh) if nq else (b, h, dh)), dtype=dtype)
+        if chunk:
+            kw.update(q_chunk=randn(chunk, h, dh, dtype=dtype), chunk_table=ctbl,
+                      chunk_start=cstart)
+        ref_global = kr.ragged_paged_attention(q, kp, vp, tbl, vl, **kw)
+        # This rank's shard.
+        rows, heads = slice(d * bl, (d + 1) * bl), slice(m * hl, (m + 1) * hl)
+        kvh = slice(m * kl, (m + 1) * kl)
+        pages = slice(d * lp, (d + 1) * lp)
+        kpl = kp[pages, :, kvh].contiguous()
+        vpl = vp[pages, :, kvh].contiguous()
+        ql = (q[rows, :, heads] if nq else q[rows, heads]).contiguous()
+        lkw = dict(window=window)
+        if groups:
+            gid, rep, gend, _ = kw["groups"]
+            lkw["groups"] = (gid[rows].contiguous(), rep, gend, sst[rows].contiguous())
+        if chunk:
+            lkw.update(q_chunk=kw["q_chunk"][:, heads].contiguous(), chunk_table=ctbl,
+                       chunk_start=cstart)
+        args = (mesh, ql, kpl, vpl, tbl[rows].contiguous(), vl[rows].contiguous())
+
+        def fn():
+            return kr.ragged_paged_attention_sharded(*args, **lkw)
+
+        def plain():
+            return kr.ragged_paged_attention_sharded_plain(*args, **lkw)
+
+        got, twin = fn(), plain()
+        ref = ref_global[0] if chunk else ref_global
+        ref_rows = (ref[rows, :, heads] if nq else ref[rows, heads])
+        pairs = [(got[0] if chunk else got, twin[0] if chunk else twin, ref_rows)]
+        if chunk:
+            pairs.append((got[1], twin[1], ref_global[1][:, heads]))
+        e_twin = [compare(dtype, a, t) for a, t, _ in pairs]
+        e_k8 = [compare(dtype, a, r) for a, _, r in pairs]
+        r = dict(kernel="ragged_paged_attention_sharded", label=label, dtype=str(dtype),
+                 kv_dtype=str(kv_dtype), rank=mesh.rank,
+                 owns_chunk=bool(chunk) and d == chunk_shard,
+                 err=max(e for e, _ in e_twin), ratio=max(x for _, x in e_twin),
+                 err_vs_k8=max(e for e, _ in e_k8), ratio_vs_k8=max(x for _, x in e_k8),
+                 finite=all(bool(torch.isfinite(a).all()) for a, _, _ in pairs),
+                 shape=f"per rank q[{bl},{nq or 1},{hl},{dh}] pool[{lp},{pg},{kl},{dh}] "
+                 f"tables[{bl},{P}]" + (f" chunk {chunk}@{cstart}" if chunk else "")
+                 + (f" {groups} groups" if groups else ""))
+        if label != K9_REPORTED or dtype != kv_dtype or dtype != torch.bfloat16:
+            return r
+        r["reported"] = True
+        # The local work alone: K8 on this shard with the tables rebased
+        # (the rebase and the sum over data left out), timed in turns.
+        off = d * lp
+        ktbl = (tbl[rows] - off).clamp(0, lp - 1).int().contiguous()
+        kkw = dict(window=window, q_chunk=lkw["q_chunk"],
+                   chunk_table=(ctbl - off).clamp(0, lp - 1).int().contiguous(),
+                   chunk_start=cstart)
+        gid_l, rep, gend, sst_l = lkw["groups"]
+        kkw["groups"] = (gid_l, (rep - d * bl).clamp(0, bl - 1).int(), gend, sst_l)
+        vl_l = vl[rows].contiguous()
+
+        def local():
+            return kr.ragged_paged_attention(ql, kpl, vpl, ktbl, vl_l, **kkw)
+
+        # The library: two SDPA calls on this shard (decode rows, chunk) on
+        # K/V gathered out of the local pool ahead of time, as K8's row.
+        kd = kpl[ktbl.long()].reshape(bl, P * pg, kl, dh).transpose(1, 2)
+        vd = vpl[ktbl.long()].reshape(bl, P * pg, kl, dh).transpose(1, 2)
+        slot = torch.arange(P * pg, device="cuda")
+        dmask = (slot[None] < vl_l[:, None])[:, None, None, :]
+        qd = ql[:, :, None]
+        ck = kkw["chunk_table"].long()
+        kc = kpl[ck].reshape(1, P * pg, kl, dh).transpose(1, 2)
+        vc = vpl[ck].reshape(1, P * pg, kl, dh).transpose(1, 2)
+        qc = lkw["q_chunk"].transpose(0, 1)[None]
+        cpos = cstart + torch.arange(chunk, device="cuda")
+        cmask = (slot[None, :] <= cpos[:, None])[None, None]
+
+        def library():
+            F.scaled_dot_product_attention(qd, kd, vd, attn_mask=dmask, enable_gqa=True)
+            F.scaled_dot_product_attention(qc, kc, vc, attn_mask=cmask, enable_gqa=True)
+
+        es, kes = torch.finfo(dtype).bits // 8, torch.finfo(kv_dtype).bits // 8
+        # This shard's bytes, as K8's row reckons them: the shared run once
+        # for the group with members here, each row's slots past it, the
+        # chunk's table up to its last query on the shard that owns the
+        # chunk (another shard's result is zeros: it needs no chunk K/V),
+        # q and out, tables and lengths. Operations: 4 * D per (query head,
+        # visible slot) of this shard's heads.
+        owned = chunk if r["owns_chunk"] else 0
+        slots_read = run + int((vl_l - sst_l).sum()) + (cstart + chunk) * bool(owned)
+        nbytes = (2 * slots_read * kl * dh * kes + 2 * (ql.numel() + chunk * hl * dh) * es
+                  + 4 * (bl * P + P + 4 * bl))
+        pairs_ = int(vl_l.sum()) * hl + hl * sum(cstart + i + 1 for i in range(owned))
+        r.update(ms=timer.ms(fn), plain_ms=timer.ms(plain, iters=5),
+                 kernel_ms=in_turns(mesh, lambda: timer.ms(local)),
+                 library_ms=in_turns(mesh, lambda: timer.ms(library)),
+                 bound=bound_ms(nbytes, 4 * pairs_ * dh, dtype))
+        return r
+
+    rows = []
+    seed = 9000
+    for dtype, kv_dtype in ((torch.bfloat16, torch.bfloat16), (torch.float32, torch.float32),
+                            (torch.float32, torch.bfloat16)):
+        for label, kw in K9_CASES:
+            seed += 1
+            rows.append(case(seed, label, dtype, kv_dtype, **kw))
+    return rows
+
+
+def mesh_steps_script(cfg):
+    """Phase 6b's paged-step script, host values only (the single card
+    and every mesh rank replay it): four prompts on rows 0, 1 (data shard
+    0, pages 1-255) and 8, 9 (shard 1, pages 257-511), each pair sharing
+    its first two pages, chunked by 64; then three decode steps with fixed
+    input tokens; then a fused step with a fifth prompt's chunk on shard 1.
+    Rows 0/1 and 8/9 form one decode group each."""
+    import numpy as np
+
+    from llm_consensus_tpu_torch.models.paged_cache import GroupTracker
+
+    rng = np.random.default_rng(6)
+    pg, P, slots = K8_PG, K8_P, SERVE_SLOTS
+
+    def table(pages):
+        t = np.zeros(P, np.int32)
+        t[: len(pages)] = pages
+        return t
+
+    base = [rng.integers(3, 259, 128), rng.integers(3, 259, 128)]
+    prompts = {0: np.concatenate([base[0], rng.integers(3, 259, 90)]),
+               1: np.concatenate([base[0], rng.integers(3, 259, 50)]),
+               8: np.concatenate([base[1], rng.integers(3, 259, 70)]),
+               9: np.concatenate([base[1], rng.integers(3, 259, 100)])}
+    tables = {0: table([1, 2, 3, 4, 5]), 1: table([1, 2, 6, 7]),
+              8: table([257, 258, 259, 260, 261]), 9: table([257, 258, 262, 263, 264])}
+    chunks = []
+    for row, ids in prompts.items():
+        start = 0 if row in (0, 8) else 128  # rows 1 and 9 map the shared pages
+        for s in range(start, len(ids), 64):
+            toks = np.zeros((1, 64), np.int32)
+            seg = ids[s:s + 64]
+            toks[0, :len(seg)] = seg
+            chunks.append((toks, s, tables[row]))
+    groups = GroupTracker(slots, pg)
+    for row, ids in prompts.items():
+        groups.add(row, tables[row][: len(ids) // pg])
+    return dict(
+        chunks=chunks, installs={r: (tables[r], len(ids)) for r, ids in prompts.items()},
+        live=sorted(prompts), groups=groups.host_arrays(),
+        tokens=[rng.integers(3, 259, (slots, 1)).astype(np.int32) for _ in range(3)],
+        fused=(rng.integers(3, 259, (1, 64)).astype(np.int32), table([300, 301])),
+    )
+
+
+def run_steps(torch, cfg, params, script, mesh=None):
+    """Replay :func:`mesh_steps_script` over a float32 pool, on the single
+    card (``mesh`` None) or on this rank's shard; returns the chunks'
+    hidden states and the live rows' logits (gathered over ``data``)."""
+    from llm_consensus_tpu_torch.models import paged_cache as pc
+    from llm_consensus_tpu_torch.models import transformer as tt
+    from llm_consensus_tpu_torch.utils.device import h2d
+
+    dev = torch.device("cuda")
+    cache = pc.PagedKVCache.create(cfg, 512, K8_PG, SERVE_SLOTS, K8_P, torch.float32,
+                                   device=dev, mesh=mesh)
+    lo, hi = cache.row_offset, cache.row_offset + cache.max_seqs
+
+    def full(x):
+        return x if mesh is None else mesh.gather(x.contiguous(), "data", dim=0)
+
+    out = {"hidden": [], "logits": []}
+    for toks, start, table in script["chunks"]:
+        hid, _ = tt.prefill_chunk_paged(cfg, params, h2d(toks, dev, torch.int64),
+                                        h2d(table, dev), start, cache, mesh=mesh)
+        out["hidden"].append(hid[0].cpu())
+    for row, (table, n) in script["installs"].items():
+        pc.install_seq(cache, row, table, n)
+    groups = pc.DecodeGroupArrays.from_host(script["groups"], dev, slice(lo, hi))
+    live = script["live"]
+    for toks in script["tokens"]:
+        logits, _ = tt.decode_step_paged(cfg, params, h2d(toks[lo:hi], dev, torch.int64),
+                                         cache, groups=groups, mesh=mesh)
+        out["logits"].append(full(logits)[live].cpu())
+    ids, table = script["fused"]
+    logits, hid, _ = tt.fused_step_paged(
+        cfg, params, h2d(script["tokens"][-1][lo:hi], dev, torch.int64), cache,
+        h2d(ids, dev, torch.int64), h2d(table, dev), 0, groups=groups, mesh=mesh)
+    out["logits"].append(full(logits)[live].cpu())
+    out["hidden"].append(hid[0].cpu())
+    return out
+
+
+def parity_burst():
+    """Phase 6b's burst: 8 greedy requests, 2 groups of 4 sharing a header."""
+    return serving_burst(n_groups=2, per_group=4, new_tokens=(32, 48), greedy_only=True,
+                         seed=3)
+
+
+def mesh_rank(ref: dict) -> dict:
+    """Phase 6 on one rank of the dp2 x mp2 world (4 ranks on cuda:0).
+
+    (a) K9's cases (:func:`k9_rank_cases`). (b) Parity on llama-1b, full
+    width and depth: the paged-step script on float32 weights, then the
+    greedy parity burst through the mesh batcher on float32, bf16 and
+    int8 weights (rank 0 returns the texts; the parent compares them with
+    the single card's). (c) The 32-request burst of :func:`serving_burst`
+    on bf16 weights, launch counts set to 0 just before it and read just
+    after on every rank. Rank 0 runs the batcher; the others its worker
+    loop."""
+    import torch
+
+    from llm_consensus_tpu_torch.models.configs import get_config
+    from llm_consensus_tpu_torch.models.transformer import init_params
+    from llm_consensus_tpu_torch.ops import kernels
+    from llm_consensus_tpu_torch.ops.quant import quantize_params
+    from llm_consensus_tpu_torch.parallel import MeshConfig, make_mesh, shard_params
+    from llm_consensus_tpu_torch.serving import (
+        ContinuousBatcher,
+        ContinuousConfig,
+        serve_worker,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    mesh = make_mesh(MeshConfig(**MESH), device=dev)
+    cfg = get_config("llama-1b")
+    card = ref["card"]
+    out: dict = {"rank": mesh.rank, "coords": mesh.coords}
+    lead = mesh.rank == 0
+
+    def say(msg):
+        if lead:
+            print(msg, flush=True)
+
+    say(f"phase 6a: K9 against its twin and the unsharded K8, {MESH} over {MESH_BACKEND}, "
+        "4 ranks on one card")
+    out["k9_rows"] = k9_rank_cases(torch, mesh, cfg, Timer(torch))
+
+    def serve(params, burst, label):
+        """One mesh batcher over ``burst`` (every rank), counts reset
+        before and read after; rank 0 returns the burst's numbers."""
+        config = ContinuousConfig(max_slots=SERVE_SLOTS)
+        kernels.reset_launch_counts()
+        res = None
+        if lead:
+            batcher = ContinuousBatcher(cfg, params, config=config, mesh=mesh)
+            try:
+                c0 = mesh.collective_seconds
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                futs = [batcher.submit(p, **kw) for p, kw in burst]
+                outs = [f.result(timeout=600) for f in futs]
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                st = batcher.stats()
+                res = dict(texts=[o.text for o in outs], tokens=[o.num_tokens for o in outs],
+                           wall=wall, stats=st, collective_s=mesh.collective_seconds - c0)
+            finally:
+                batcher.close()
+        else:
+            serve_worker(cfg, params, config, mesh)
+        torch.cuda.synchronize()
+        counts = launch_counts(kernels)
+        say(f"  mesh {label}: rank 0 launches {counts}")
+        return res, counts
+
+    say("phase 6b: parity on llama-1b, float32 weights: paged steps, then the greedy burst")
+    p32 = init_params(cfg, 0, dtype=torch.float32, device=dev)
+    out["steps"] = run_steps(torch, cfg.with_(use_pallas=True), shard_params(p32, mesh),
+                             ref["script"], mesh)
+    out["parity"] = {}
+    out["parity_counts"] = {}
+    out["parity"]["float32"], out["parity_counts"]["float32"] = serve(
+        p32, parity_burst(), "float32 parity burst")
+    del p32
+    torch.cuda.empty_cache()
+    p16 = init_params(cfg, 0, dtype=torch.bfloat16, device=dev)
+    out["parity"]["int8"], out["parity_counts"]["int8"] = serve(
+        quantize_params(p16, bits=8), parity_burst(), "int8 parity burst")
+    out["parity"]["bfloat16"], out["parity_counts"]["bfloat16"] = serve(
+        p16, parity_burst(), "bf16 parity burst")
+    say("phase 6c: the 32-request burst on bf16 weights through the mesh batcher")
+    out["burst"], out["burst_counts"] = serve(p16, serving_burst(), "32-request burst")
+    return out
+
+
+def near_tie_gap(torch, cfg, params, tokenizer, prompt, got: str, want: str):
+    """Where the mesh's text ``got`` leaves the single card's ``want``:
+    the single card's float32 logits after the common prefix, and the gap
+    between the two tokens chosen there (EOS where a text ended)."""
+    from llm_consensus_tpu_torch.models.transformer import forward
+
+    a = tokenizer.encode(got, add_bos=False) + [tokenizer.eos_id]
+    b = tokenizer.encode(want, add_bos=False) + [tokenizer.eos_id]
+    t = next(i for i, (x, y) in enumerate(zip(a, b)) if x != y)
+    ids = tokenizer.encode(prompt) + b[:t]
+    logits = forward(cfg, params, torch.tensor([ids], device="cuda"))[0, -1]
+    return t, abs(float(logits[a[t]] - logits[b[t]]))
+
+
+def mesh_phase(torch, cfg, card: str) -> dict:
+    """Phase 6: the parent's single-card references, then the dp2 x mp2
+    world of 4 ranks on this card (the kernel library is already built,
+    so the ranks only load it), then every check on the ranks' results.
+    Raises on any failed rank or check."""
+    import tempfile
+    from pathlib import Path
+
+    from llm_consensus_tpu_torch.engine.tokenizer import ByteTokenizer
+    from llm_consensus_tpu_torch.models.transformer import init_params
+    from llm_consensus_tpu_torch.ops.kernels import build
+    from llm_consensus_tpu_torch.parallel import launch
+    from llm_consensus_tpu_torch.serving import ContinuousBatcher, ContinuousConfig
+
+    print(f"phase 6: dp2 x mp2 serving on one card: {MESH} as 4 ranks on cuda:0 over "
+          f"--dist-backend {MESH_BACKEND}")
+    cfg_k = cfg.with_(use_pallas=True)
+    script = mesh_steps_script(cfg)
+    p32 = init_params(cfg, 0, dtype=torch.float32, device="cuda")
+    single_steps = run_steps(torch, cfg_k, p32, script)
+    b = ContinuousBatcher(cfg, p32, config=ContinuousConfig(max_slots=SERVE_SLOTS))
+    try:
+        single = [f.result(timeout=600) for f in
+                  [b.submit(p, **kw) for p, kw in parity_burst()]]
+    finally:
+        b.close()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(prefix="mesh-", dir=build.BUILD_DIR) as work:
+        results = launch(f"{Path(__file__).resolve()}:mesh_rank", 4,
+                         ({"card": card, "script": script},), backend=MESH_BACKEND,
+                         workdir=work, deadline_s=MESH_DEADLINE_S, timeout_s=300.0)
+    print(f"  world of 4 ranks ran in {time.perf_counter() - t0:.1f} s")
+    for r in results:
+        if not r.ok:
+            raise AssertionError(f"mesh rank {r.rank} failed: {r.error}\n{r.log}")
+    print(results[0].log, end="")
+    ranks = [r.result for r in results]
+
+    # (a) K9 on every case and rank.
+    rows = [row for rk in ranks for row in rk["k9_rows"]]
+    for r in rows:
+        ok = (r["ratio"] <= 1.0 and r["ratio_vs_k8"] <= 1.0 and r["finite"]
+              and math.isfinite(r["err"]))
+        timing = ""
+        if "ms" in r:
+            timing = (f" ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} "
+                      f"kernel_ms={r['kernel_ms']:.4f} library_ms={r['library_ms']:.4f} "
+                      f"bound_ms={r['bound'][0]:.4f} ({r['bound'][1]})")
+        print(f"  K9 rank {r['rank']} {r['dtype']:15s} over {r['kv_dtype']:15s} "
+              f"{r['label']:66s} max_abs_err={r['err']:.3e} err/tol={r['ratio']:.3f} "
+              f"vs_unsharded_k8={r['err_vs_k8']:.3e} err/tol={r['ratio_vs_k8']:.3f}"
+              f"{timing} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"K9 disagrees on rank {r['rank']}: {r}")
+
+    # (b) Parity with the single card.
+    worst = 0.0
+    for kind in ("hidden", "logits"):
+        for i, (a, w) in enumerate(zip(ranks[0]["steps"][kind], single_steps[kind])):
+            err = float((a - w.cpu()).abs().max())
+            worst = max(worst, err)
+            if not err <= STEP_LOGIT_TOL:
+                raise AssertionError(f"mesh paged step {kind} {i}: max abs err {err}")
+    print(f"  paged steps, float32 weights and pool, mesh vs single card: "
+          f"max_abs_err={worst:.3e} (tolerance {STEP_LOGIT_TOL})")
+    tok = ByteTokenizer()
+    par = ranks[0]["parity"]
+    texts = [o.text for o in single]
+    ties = []
+    for i, (got, want) in enumerate(zip(par["float32"]["texts"], texts)):
+        if got == want:
+            continue
+        t, gap = near_tie_gap(torch, cfg, p32, tok, parity_burst()[i][0], got, want)
+        if gap >= NEAR_TIE:
+            raise AssertionError(f"mesh float32 text {i} differs at token {t} with gap "
+                                 f"{gap}: {ascii(got)} != {ascii(want)}")
+        ties.append((i, t, gap))
+    print(f"  greedy parity burst (8 requests, float32 weights): mesh tokens equal the single "
+          f"card's in {8 - len(ties)} of 8 requests"
+          + (f"; near-ties (request, token, gap): {ties}" if ties else ""))
+    del p32
+    torch.cuda.empty_cache()
+    for label, need in (("float32", ("ragged_paged_attention_sharded",)),
+                        ("bfloat16", ("ragged_paged_attention_sharded",)),
+                        ("int8", ("ragged_paged_attention_sharded", "quant_matmul_2d"))):
+        res = par[label]
+        if len(res["texts"]) != 8 or min(res["tokens"]) < 1:
+            raise AssertionError(f"mesh {label} burst incomplete: {res['tokens']}")
+        for rk in ranks:
+            missing = [n for n in need if rk["parity_counts"][label][n] == 0]
+            if missing:
+                raise AssertionError(f"mesh {label} run on rank {rk['rank']} never "
+                                     f"launched {missing}")
+        print(f"  mesh {label} burst: tokens={sum(res['tokens'])} K9 launches per rank="
+              f"{[rk['parity_counts'][label]['ragged_paged_attention_sharded'] for rk in ranks]}"
+              + (f" K6 launches per rank="
+                 f"{[rk['parity_counts'][label]['quant_matmul_2d'] for rk in ranks]}"
+                 if label == "int8" else ""))
+
+    # (c) The 32-request burst.
+    res = ranks[0]["burst"]
+    st = res["stats"]
+    need = ("fused_rms_norm", "ragged_paged_attention", "ragged_paged_attention_sharded")
+    for rk in ranks:
+        missing = [n for n in need if rk["burst_counts"][n] == 0]
+        if missing:
+            raise AssertionError(f"mesh burst on rank {rk['rank']} never launched {missing}")
+    wall = res["wall"]
+    tokens = sum(res["tokens"])
+    k9 = [rk["burst_counts"]["ragged_paged_attention_sharded"] for rk in ranks]
+    burst = dict(
+        label="4 ranks (dp2 x mp2) on one card over gloo", card=card,
+        requests=len(res["tokens"]), seconds=wall, requests_per_s=len(res["tokens"]) / wall,
+        generated_tokens=tokens, generated_tokens_per_s=tokens / wall,
+        iterations=st["work_iterations"],
+        ms_per_iteration=1e3 * wall / max(1, st["work_iterations"]),
+        k9_launches_per_rank=k9,
+        prefix_pages_shared_per_shard=st["prefix_pages_shared_per_shard"],
+        rank0_collective_seconds=res["collective_s"],
+        rank0_collective_share=res["collective_s"] / wall,
+        mesh_data_shards=st["mesh_data_shards"], mesh_model_shards=st["mesh_model_shards"],
+    )
+    if len(res["tokens"]) != 32 or min(res["tokens"]) < 1:
+        raise AssertionError(f"mesh burst incomplete: {res['tokens']}")
+    print("  serving mesh burst: " + " ".join(
+        f"{k}={v:.6g}" if isinstance(v, float) else f"{k}={v}" for k, v in burst.items()))
+    # The reported case's chunk belongs to data shard 1: its first rank
+    # (rank 2) does all the work K9 needs on a shard.
+    rep = next(r for rk in ranks for r in rk["k9_rows"] if r.get("reported")
+               and r["owns_chunk"])
+    k9_row = {
+        "name": "ragged_paged_attention_sharded", "route": "cuda",
+        "source": "llm_consensus_tpu_torch/ops/kernels/csrc/ragged_paged_attention.cu",
+        "wrapper": "llm_consensus_tpu_torch/ops/kernels/ragged_attention.py",
+        "replaces": "llm_consensus_tpu/ops/pallas/attention.py:1286",
+        "launches": sum(k9), "launches_per_rank": k9, "launches_from": ["mesh_burst"],
+        "max_abs_err": max(r["err"] for r in rows if r["dtype"] == "torch.bfloat16"
+                           and r["kv_dtype"] == "torch.bfloat16"),
+        "ms": rep["ms"], "plain_ms": rep["plain_ms"], "kernel_ms": rep["kernel_ms"],
+        "bound_ms": rep["bound"][0], "bound_by": rep["bound"][1],
+        "library_ms": rep["library_ms"], "shape": rep["shape"], "dtype": "bfloat16",
+        "timing": f"rank {rep['rank']} of 4 (the chunk's owner shard) on one card over "
+                  "gloo: ms and plain_ms with all ranks in step (the chunk's sum over data "
+                  "included); kernel_ms and library_ms alone on the card; bound_ms from "
+                  "this rank's shard",
+    }
+    return {"burst": burst, "k9_row": k9_row, "near_ties": ties, "step_max_abs_err": worst}
+
+
+# ---------------------------------------------------------------------------
 
 
 def launch_counts(kernels) -> dict:
@@ -1285,6 +1854,8 @@ def main() -> int:
         if stacked:
             path_counts["int8_stacked_check"] = counts
 
+    mesh = mesh_phase(torch, cfg, card)
+
     d = "llm_consensus_tpu_torch/ops/kernels/csrc/"
     p = "llm_consensus_tpu/ops/pallas/"
     # name -> (source, TPU kernel it replaces, the runs whose launches count)
@@ -1326,6 +1897,8 @@ def main() -> int:
             "bound_by": r["bound"][1], "library_ms": r["library_ms"],
             "shape": r["shape"], "dtype": "bfloat16",
         })
+    summary.append(mesh["k9_row"])
+    serving["mesh_burst"] = mesh["burst"]
     print(json.dumps({"serving": serving, "plan": plan, "card": smi}))
     print(json.dumps({"kernels": summary}))
     print(smi)

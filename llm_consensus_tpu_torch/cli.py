@@ -21,6 +21,15 @@ are random, made from ``--seed``. ``--quant int8`` quantizes them to int8
 (``--serve-slots``, ``--prefill-chunk``, ``--no-share-prefix``,
 ``--no-ragged-attention``, ``--pipeline-depth``); the HTTP ``serve``
 subcommand comes with the gateway slice.
+
+``--backend continuous --mesh data=2,model=2 --dist-backend gloo`` serves
+on a dp x mp mesh over ``torch.distributed``: rank 0 runs the question or
+the REPL, the other ranks the batcher's worker loop. Under ``torchrun
+--nproc-per-node 4`` the world comes from its environment; without it the
+CLI starts the ranks itself (the port's launcher), rank 0's output on this
+terminal. Each rank drives ``cuda:(LOCAL_RANK % card count)``: ``nccl``
+with one card per rank, ``gloo`` for several ranks on one card (or
+``--cpu``).
 """
 
 from __future__ import annotations
@@ -84,27 +93,11 @@ def _build_backend(args):
         from llm_consensus_tpu_torch.serving.continuous import (
             ContinuousBackend,
             ContinuousBatcher,
-            ContinuousConfig,
         )
 
-        if args.quant != "none":
-            # The engine path's weight-only quantization: the paged steps
-            # read quantized leaves through ops.quant.matmul as well.
-            from llm_consensus_tpu_torch.ops.quant import quantize_params
-
-            params = quantize_params(params, bits=8 if args.quant == "int8" else 4)
         return ContinuousBackend(
             ContinuousBatcher(
-                cfg,
-                params,
-                config=ContinuousConfig(
-                    max_slots=args.serve_slots,
-                    max_new_tokens=args.max_new_tokens,
-                    prefill_chunk=args.prefill_chunk,
-                    share_prefix=not args.no_share_prefix,
-                    pipeline_depth=args.pipeline_depth,
-                    ragged_attention=not args.no_ragged_attention,
-                ),
+                cfg, _serving_params(args, params), config=_serving_config(args),
                 device=device,
             )
         )
@@ -117,6 +110,105 @@ def _build_backend(args):
         device=device,
     )
     return LocalBackend(engine)
+
+
+def _serving_params(args, params):
+    """The engine path's weight-only quantization: the paged steps read
+    quantized leaves through ops.quant.matmul as well."""
+    if args.quant == "none":
+        return params
+    from llm_consensus_tpu_torch.ops.quant import quantize_params
+
+    return quantize_params(params, bits=8 if args.quant == "int8" else 4)
+
+
+def _serving_config(args):
+    from llm_consensus_tpu_torch.serving.continuous import ContinuousConfig
+
+    return ContinuousConfig(
+        max_slots=args.serve_slots,
+        max_new_tokens=args.max_new_tokens,
+        prefill_chunk=args.prefill_chunk,
+        share_prefix=not args.no_share_prefix,
+        pipeline_depth=args.pipeline_depth,
+        ragged_attention=not args.no_ragged_attention,
+    )
+
+
+def mesh_rank(argv: list[str]) -> int:
+    """One rank of ``--mesh`` serving, in a world already joined: rank 0
+    answers the question or runs the REPL through the mesh batcher; the
+    other ranks run its worker loop until rank 0 closes it."""
+    import torch
+
+    from llm_consensus_tpu_torch.models.configs import get_config
+    from llm_consensus_tpu_torch.models.transformer import init_params
+    from llm_consensus_tpu_torch.parallel.mesh import MeshConfig, make_mesh
+    from llm_consensus_tpu_torch.serving.continuous import (
+        ContinuousBackend,
+        ContinuousBatcher,
+        serve_worker,
+    )
+
+    _init_logging()
+    args = build_parser().parse_args(argv)
+    if args.cpu:
+        device = torch.device("cpu")
+    else:
+        from llm_consensus_tpu_torch.utils.device import resolve_device
+
+        resolve_device("cuda")  # raises without a card
+        local = int(os.environ.get("LOCAL_RANK", "0"))
+        device = torch.device("cuda", local % torch.cuda.device_count())
+        torch.cuda.set_device(device)
+    mesh = make_mesh(MeshConfig(**_parse_axes(args.mesh)), device=device)
+    cfg = get_config(args.model)
+    # Every rank makes the same full tree from the seed; each keeps its shard.
+    params = _serving_params(args, init_params(cfg, args.seed or 0, device=device))
+    if mesh.rank != 0:
+        serve_worker(cfg, params, _serving_config(args), mesh)
+        return 0
+    log.warning(
+        "Using RANDOM weights for %s on a %s mesh over %s (protocol/e2e "
+        "plumbing only; text will be gibberish).", cfg.name, args.mesh, args.dist_backend,
+    )
+    backend = ContinuousBackend(
+        ContinuousBatcher(cfg, params, config=_serving_config(args), mesh=mesh)
+    )
+    try:
+        return _run_coordinator(args, backend)
+    finally:
+        asyncio.run(backend.close())
+
+
+def _run_mesh(args, argv: list[str]) -> int:
+    """``--mesh``: join torchrun's world, or start one with the port's
+    launcher (rank 0's output here, stdin to rank 0)."""
+    from llm_consensus_tpu_torch.parallel.mesh import MeshConfig
+    from llm_consensus_tpu_torch.parallel.multihost import initialize_distributed
+
+    if args.backend != "continuous":
+        raise SystemExit("--mesh serves through --backend continuous")
+    if args.dist_backend is None:
+        raise SystemExit("--mesh needs --dist-backend {nccl,gloo}")
+    size = MeshConfig(**_parse_axes(args.mesh)).size
+    if "WORLD_SIZE" in os.environ:
+        initialize_distributed(args.dist_backend)
+        return mesh_rank(argv)
+    import tempfile
+
+    from llm_consensus_tpu_torch.parallel.launch import launch
+
+    with tempfile.TemporaryDirectory(prefix="lct-mesh-") as work:
+        results = launch(
+            "llm_consensus_tpu_torch.cli:mesh_rank", size, (argv,),
+            backend=args.dist_backend, workdir=work, deadline_s=None,
+            rank0_inherits_stdio=True,
+        )
+    failed = [r for r in results if not r.ok]
+    for r in failed:
+        log.error("mesh rank %d failed: %s\n%s", r.rank, r.error, r.log)
+    return 1 if failed else int(results[0].result or 0)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -167,6 +259,20 @@ def build_parser() -> argparse.ArgumentParser:
         help="continuous backend: decode programs in flight at once (1 = "
         "the serialized loop; outputs are identical either way)",
     )
+    p.add_argument(
+        "--mesh",
+        default=None,
+        metavar="AXIS=N[,AXIS=N...]",
+        help="continuous backend: serve on a data x model mesh, e.g. "
+        "'data=2,model=2' (one rank per mesh device; needs --dist-backend)",
+    )
+    p.add_argument(
+        "--dist-backend",
+        choices=["nccl", "gloo"],
+        default=None,
+        help="--mesh: the torch.distributed backend — nccl with one card "
+        "per rank, gloo for several ranks on one card or on the CPU",
+    )
     p.add_argument("--model", default="llama-1b", help="model preset name")
     p.add_argument("--panel", default=None, help="panel JSON file")
     p.add_argument(
@@ -212,7 +318,8 @@ def build_parser() -> argparse.ArgumentParser:
         "--plan-mesh",
         default="",
         metavar="AXIS=N,...",
-        help="not ported yet: a mesh with an axis > 1 raises",
+        help="plan per rank of a mesh, e.g. 'data=4,model=2' (pipe, "
+        "expert and seq > 1 are not ported and raise)",
     )
     p.add_argument(
         "--plan-hbm-gib",
@@ -293,13 +400,21 @@ async def repl(coord: Coordinator, stream=None) -> None:
 
 def main(argv: list[str] | None = None) -> int:
     _init_logging()
+    argv = sys.argv[1:] if argv is None else list(argv)
     args = build_parser().parse_args(argv)
     if args.plan:
         return _run_plan(args)
+    if args.mesh:
+        return _run_mesh(args, argv)
+    return _run_coordinator(args, _build_backend(args))
+
+
+def _run_coordinator(args, backend) -> int:
+    """Answer ``--question`` or run the REPL over ``backend``."""
     panel = load_panel(args.panel) if args.panel else default_panel()
     coord = Coordinator(
         panel,
-        _build_backend(args),
+        backend,
         CoordinatorConfig(
             max_rounds=args.max_rounds,
             seed=args.seed,

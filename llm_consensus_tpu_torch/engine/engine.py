@@ -25,7 +25,7 @@ from llm_consensus_tpu_torch.engine.generate import GenerateOutput, generate
 from llm_consensus_tpu_torch.engine.sampler import SamplerConfig
 from llm_consensus_tpu_torch.engine.tokenizer import ByteTokenizer, Tokenizer
 from llm_consensus_tpu_torch.models.configs import ModelConfig
-from llm_consensus_tpu_torch.ops.quant import quantize_params, quantized_bytes
+from llm_consensus_tpu_torch.ops.quant import quantize_params
 from llm_consensus_tpu_torch.utils.device import resolve_device, to_device
 from llm_consensus_tpu_torch.utils.stops import (
     earliest_stop_cut,
@@ -82,10 +82,15 @@ def _memory_plan(
     kv_quant: bool,
     shared_prefix_len: int,
     hbm_bytes: int | None,
+    mesh_shape: dict | None = None,
 ) -> dict:
     """The terms of ``memory_estimate`` and ``plan_memory``: the engine's
     bucketing of the batch and the prompt, the KV cache and logits of one
-    generate call at those shapes, and their total with the params."""
+    generate call at those shapes, and their total with the params. On a
+    mesh (``mesh_shape``) the terms are per rank: ``params_bytes`` comes
+    in already sharded, and the KV cache and the logits divide by
+    ``data`` x ``model`` (the cache's batch over data, its kv heads over
+    model; the JAX package's division)."""
     s = min(_next_bucket(prompt_len, seq_buckets), cfg.max_seq_len)
     b = _next_bucket(n_candidates, batch_buckets)
     cache_len = s + max(1, min(new_tokens, cfg.max_seq_len - s))
@@ -93,6 +98,10 @@ def _memory_plan(
         cfg, b, cache_len, kv_quant, shared_len=min(shared_prefix_len, s)
     )
     logits = _logits_bytes(cfg, b)
+    shape = mesh_shape or {}
+    c_div = shape.get("data", 1) * shape.get("model", 1)
+    kv //= c_div
+    logits //= max(1, c_div)
     out = {
         "params_bytes": params_bytes,
         "kv_cache_bytes": kv,
@@ -276,6 +285,7 @@ class InferenceEngine:
         new_tokens: int | None = None,
         hbm_bytes: int | None = None,
         shared_prefix_len: int = 0,
+        mesh_shape: dict | None = None,
     ) -> dict:
         """Device-memory estimate for a generate call at these shapes.
 
@@ -285,13 +295,19 @@ class InferenceEngine:
         logits, and their total; ``fits`` when ``hbm_bytes`` is given.
         ``shared_prefix_len``: prompt-prefix tokens stored once for every
         candidate (the paged serving path); 0 models the engine's dense
-        per-row cache. The JAX package's draft and mesh terms do not
-        arise: the port's engine has neither a draft model nor a mesh.
+        per-row cache. ``mesh_shape`` (e.g. ``{"data": 2, "model": 2}``):
+        the per-rank terms of the same call sharded over that mesh —
+        params per :func:`~llm_consensus_tpu_torch.parallel.partitioning.
+        sharded_param_bytes`, KV and logits divided by data x model. The
+        JAX package's draft term does not arise: the port's engine has no
+        draft model.
         """
+        from llm_consensus_tpu_torch.parallel.partitioning import sharded_param_bytes
+
         c = self.config
         return _memory_plan(
             self.cfg,
-            quantized_bytes(self.params),
+            sharded_param_bytes(self.params, mesh_shape or {}),
             seq_buckets=c.seq_buckets,
             batch_buckets=c.batch_buckets,
             n_candidates=n_candidates,
@@ -300,6 +316,7 @@ class InferenceEngine:
             kv_quant=c.kv_quant,
             shared_prefix_len=shared_prefix_len,
             hbm_bytes=hbm_bytes,
+            mesh_shape=mesh_shape,
         )
 
     @staticmethod
@@ -366,16 +383,19 @@ def plan_memory(
     included) that many bytes of host memory hold, and the prefix tokens
     they buy. Host bytes never count against ``hbm_bytes``.
 
-    ``mesh_shape`` with an axis > 1 raises: sharded plans come with the
-    parallel slice. MoE configs raise, as ``init_params`` does.
+    ``mesh_shape`` (e.g. ``{"data": 4, "model": 2}``) gives the per-rank
+    plan: each param leaf divided by the axes its spec names
+    (:func:`~llm_consensus_tpu_torch.parallel.partitioning.
+    sharded_param_bytes`), the KV and logits terms by data x model.
+    ``pipe``, ``expert`` or ``seq`` above 1 raise (not ported), as do
+    int4 weights with ``model`` > 1 and MoE configs.
     """
     from llm_consensus_tpu_torch.models.transformer import init_params
+    from llm_consensus_tpu_torch.parallel.mesh import MeshConfig
+    from llm_consensus_tpu_torch.parallel.partitioning import sharded_param_bytes
 
-    if any(v > 1 for v in (mesh_shape or {}).values()):
-        raise NotImplementedError(
-            "plan_memory over a mesh comes with the parallel slice (sharded "
-            "params over torch.distributed), which is not ported yet"
-        )
+    shape = dict(mesh_shape or {})
+    MeshConfig(**shape)  # refuses the axes that are not ported
     tree = init_params(cfg, dtype=torch.bfloat16, device="meta")
     if quant in _QUANT_BITS:
         tree = quantize_params(tree, bits=_QUANT_BITS[quant])
@@ -383,7 +403,7 @@ def plan_memory(
     dflt = EngineConfig()
     out = _memory_plan(
         cfg,
-        quantized_bytes(tree),
+        sharded_param_bytes(tree, shape),
         seq_buckets=seq_buckets if seq_buckets is not None else dflt.seq_buckets,
         batch_buckets=batch_buckets if batch_buckets is not None else dflt.batch_buckets,
         n_candidates=n_candidates,
@@ -392,6 +412,7 @@ def plan_memory(
         kv_quant=kv_quant,
         shared_prefix_len=shared_prefix_len,
         hbm_bytes=hbm_bytes,
+        mesh_shape=shape,
     )
     if host_cache_bytes > 0:
         page_bytes = _kv_cache_bytes(cfg, 1, page_size, kv_quant)

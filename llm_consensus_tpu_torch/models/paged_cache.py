@@ -24,6 +24,18 @@ The host side is the JAX package's, copied: :class:`PagePool`
 :class:`GroupTracker` (which decoding sequences share a prefix page run,
 for the grouped read of the ragged attention kernel). The host tier's
 ``install_page``/``install_pages`` are not ported yet.
+
+On a dp x mp mesh each rank holds one shard (``create(..., mesh=)``):
+the pages of its data shard (global ids ``[d * n_pages/dp, (d + 1) *
+n_pages/dp)``), their Hkv/mp kv heads, and the table rows and lengths of
+its data shard's slots (``[d * max_seqs/dp, (d + 1) * max_seqs/dp)``).
+Tables keep GLOBAL page ids; the attention kernel (K9) rebases them.
+Every device update names global ids and lands on the owner shard alone:
+:func:`install_seq`/:func:`release_seq` on the slot's shard,
+:func:`copy_page` on the page's shard, and the paged steps' K/V writes
+(``models.transformer._write_pages``). Each shard reserves its first page
+(the NULL page on shard 0): the allocator never hands it out, and writes
+a shard drops land there.
 """
 
 from __future__ import annotations
@@ -63,6 +75,12 @@ class PagedKVCache:
     v: torch.Tensor
     page_table: torch.Tensor  # [max_seqs, pages_per_seq] int32
     length: torch.Tensor  # [max_seqs] int32
+    # On a mesh: the global id of this shard's first page, the global
+    # index of its first row, and the number of data shards (0, 0 and 1
+    # off a mesh).
+    page_offset: int = 0
+    row_offset: int = 0
+    data_shards: int = 1
 
     @staticmethod
     def create(
@@ -73,9 +91,24 @@ class PagedKVCache:
         pages_per_seq: int,
         dtype=torch.bfloat16,
         device: str | torch.device | None = None,
+        mesh=None,
     ) -> "PagedKVCache":
-        dev = resolve_device(device)
-        shape = (cfg.n_layers, n_pages, page_size, cfg.n_kv_heads, cfg.head_dim)
+        """A zeroed pool of ``n_pages`` pages and ``max_seqs`` NULL rows;
+        with ``mesh``, this rank's shard of it on the mesh's device (the
+        sizes must divide: ``transformer.check_mesh_shardable`` raises)."""
+        hkv, off_p, off_r, dp = cfg.n_kv_heads, 0, 0, 1
+        if mesh is None:
+            dev = resolve_device(device)
+        else:
+            # Imported here: the transformer imports this module.
+            from llm_consensus_tpu_torch.models.transformer import check_mesh_shardable
+
+            check_mesh_shardable(cfg, mesh, max_seqs, n_pages)
+            dev = mesh.device_for(device)
+            dp, mp, d = mesh.size("data"), mesh.size("model"), mesh.index("data")
+            n_pages, max_seqs, hkv = n_pages // dp, max_seqs // dp, hkv // mp
+            off_p, off_r = d * n_pages, d * max_seqs
+        shape = (cfg.n_layers, n_pages, page_size, hkv, cfg.head_dim)
         return PagedKVCache(
             k=torch.zeros(shape, dtype=dtype, device=dev),
             v=torch.zeros(shape, dtype=dtype, device=dev),
@@ -83,6 +116,9 @@ class PagedKVCache:
                 (max_seqs, pages_per_seq), NULL_PAGE, dtype=torch.int32, device=dev
             ),
             length=torch.zeros((max_seqs,), dtype=torch.int32, device=dev),
+            page_offset=off_p,
+            row_offset=off_r,
+            data_shards=dp,
         )
 
     @property
@@ -100,6 +136,21 @@ class PagedKVCache:
     @property
     def pages_per_seq(self) -> int:
         return self.page_table.shape[1]
+
+    def local_row(self, seq_id: int) -> int | None:
+        """The row of global slot ``seq_id`` in this shard, or None when
+        another shard holds it; IndexError outside every shard."""
+        return self._local(int(seq_id), self.row_offset, self.max_seqs, "slot")
+
+    def local_page(self, page: int) -> int | None:
+        """The pool index of global page ``page`` in this shard, or None
+        when another shard holds it; IndexError outside every shard."""
+        return self._local(int(page), self.page_offset, self.n_pages, "page")
+
+    def _local(self, i: int, offset: int, n: int, what: str) -> int | None:
+        if not 0 <= i < n * self.data_shards:
+            raise IndexError(f"{what} {i} outside 0..{n * self.data_shards - 1}")
+        return i - offset if 0 <= i - offset < n else None
 
 
 def _on(cache: PagedKVCache, x, dtype=torch.int32) -> torch.Tensor:
@@ -170,9 +221,12 @@ def assign_pages(cache: PagedKVCache, seq_id: int, pages) -> PagedKVCache:
 
 
 def release_seq(cache: PagedKVCache, seq_id: int) -> PagedKVCache:
-    """Clear a sequence's table/length (page recycling is host-side)."""
-    cache.page_table[seq_id] = NULL_PAGE
-    cache.length[seq_id] = 0
+    """Clear a sequence's table/length (page recycling is host-side). On a
+    mesh only the slot's shard holds the row."""
+    row = cache.local_row(seq_id)
+    if row is not None:
+        cache.page_table[row] = NULL_PAGE
+        cache.length[row] = 0
     return cache
 
 
@@ -180,9 +234,11 @@ def install_seq(cache: PagedKVCache, seq_id: int, pages, length: int) -> PagedKV
     """Install table AND length for one sequence — the moment a
     chunk-prefilled sequence (whose pages were written through an
     explicit host-side table, invisible to the decode program) becomes a
-    live decode row."""
-    cache.page_table[seq_id] = _on(cache, pages)
-    cache.length[seq_id] = int(length)
+    live decode row. On a mesh only the slot's shard holds the row."""
+    row = cache.local_row(seq_id)
+    if row is not None:
+        cache.page_table[row] = _on(cache, pages)
+        cache.length[row] = int(length)
     return cache
 
 
@@ -194,10 +250,15 @@ def copy_page(cache: PagedKVCache, src: int, dst: int) -> PagedKVCache:
     already-computed K/V is copied into a freshly-allocated private
     page — sharing it would let this sequence's later writes corrupt
     every other reader. Stream-ordered before any later program that
-    writes past the copied run.
+    writes past the copied run. On a mesh it runs on the pages' shard
+    alone (a prefix registry and its pages never span shards).
     """
-    cache.k[:, dst].copy_(cache.k[:, src])
-    cache.v[:, dst].copy_(cache.v[:, src])
+    s, d = cache.local_page(src), cache.local_page(dst)
+    if (s is None) != (d is None):
+        raise ValueError(f"copy_page {src} -> {dst} crosses data shards")
+    if s is not None:
+        cache.k[:, d].copy_(cache.k[:, s])
+        cache.v[:, d].copy_(cache.v[:, s])
     return cache
 
 
@@ -509,6 +570,17 @@ class DecodeGroupArrays:
     group_pages: torch.Tensor
     shared_start: torch.Tensor
 
+    @staticmethod
+    def from_host(host: tuple, device: torch.device, rows: slice = slice(None)):
+        """The arrays of :meth:`GroupTracker.host_arrays`'s tuple on
+        ``device``; ``rows``: the rows of group_id and shared_start kept
+        (a data shard's, on a mesh), group_rep and group_pages whole."""
+        gid, rep, gpages, start = host
+        return DecodeGroupArrays(
+            h2d(gid[rows], device), h2d(rep, device), h2d(gpages, device),
+            h2d(start[rows], device),
+        )
+
 
 class GroupTracker:
     """Host-side decode-group metadata over shared prefix page runs.
@@ -538,6 +610,7 @@ class GroupTracker:
         self._run_of_seq: dict[int, tuple[int, ...]] = {}
         self._dirty = True
         self._cached: DecodeGroupArrays | None = None
+        self._cached_host: tuple[np.ndarray, ...] | None = None
         # Stats for the arrays most recently built: KV tokens the grouped
         # read dedups per decode step, the largest group's member count,
         # and the lifetime high-water mark of the latter.
@@ -583,8 +656,18 @@ class GroupTracker:
         """Current group metadata as tensors on ``device``, or None when
         no group has >= 2 members (the caller then runs the ungrouped
         call)."""
+        if self._dirty:
+            host = self.host_arrays()
+            self._cached = None if host is None else DecodeGroupArrays.from_host(
+                host, self.device
+            )
+        return self._cached
+
+    def host_arrays(self) -> tuple[np.ndarray, ...] | None:
+        """:meth:`arrays` as numpy (group_id, group_rep, group_pages,
+        shared_start), or None: what a mesh's scheduler sends its ranks."""
         if not self._dirty:
-            return self._cached
+            return self._cached_host
         self._dirty = False
         pg = self.page_size
         buckets: dict[int, list[int]] = {}
@@ -600,7 +683,7 @@ class GroupTracker:
         groups.sort(key=lambda g: -(g[0] * len(g[1])))
         groups = groups[: self.max_groups]
         if not groups:
-            self._cached = None
+            self._cached = self._cached_host = None
             self.saved_tokens_per_step = 0
             self.largest_group = 0
             self.n_groups = self.grouped_rows = 0
@@ -624,7 +707,5 @@ class GroupTracker:
         self.n_groups = len(groups)
         self.grouped_rows = sum(len(m) for _, m in groups)
         self.peak_group = max(self.peak_group, largest)
-        self._cached = DecodeGroupArrays(
-            *(h2d(a, self.device) for a in (gid, rep, gpages, start))
-        )
-        return self._cached
+        self._cached_host = (gid, rep, gpages, start)
+        return self._cached_host

@@ -27,6 +27,19 @@ continuous batcher's page pool (:mod:`.paged_cache`),
 :func:`decode_step_paged`, :func:`prefill_chunk_paged`,
 :func:`fused_step_paged` and :func:`unembed_one`. The paged steps write
 the pool in place and return the cache they were given.
+
+The paged steps also run on a dp x mp mesh (``mesh=``, a
+:class:`~llm_consensus_tpu_torch.parallel.mesh.Mesh`), one rank's shard
+each: params from :func:`~llm_consensus_tpu_torch.parallel.partitioning.
+shard_params`, the cache from ``PagedKVCache.create(..., mesh=mesh)``,
+the decode rows (tokens, tables, lengths) of this rank's data shard, the
+chunk lane replicated. Megatron tensor parallelism over ``model``: q/k/v
+and gate/up split by columns (whole heads; a contiguous split keeps GQA's
+``h // G`` inside the shard), ``wo`` and ``w_down`` by rows, each followed
+by a sum over ``model``; ``lm_head`` over the vocabulary, its logits
+gathered over ``model``. Attention goes through K9 (the sharded ragged
+paged attention). A mesh that does not divide raises
+(:func:`check_mesh_shardable`): there is no fallback.
 """
 
 from __future__ import annotations
@@ -296,9 +309,10 @@ def _project_qkv(cfg: ModelConfig, p: dict, h: torch.Tensor):
         q = q + p["bq"]
         k = k + p["bk"]
         v = v + p["bv"]
-    q = q.reshape(b, s, cfg.n_heads, cfg.head_dim)
-    k = k.reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
-    v = v.reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
+    # Heads from the widths: on a mesh each rank holds H/mp and Hkv/mp.
+    q = q.reshape(b, s, -1, cfg.head_dim)
+    k = k.reshape(b, s, -1, cfg.head_dim)
+    v = v.reshape(b, s, -1, cfg.head_dim)
     return q, k, v
 
 
@@ -427,14 +441,17 @@ def _run_layers(
     return x
 
 
-def _unembed(cfg: ModelConfig, params: dict, x: torch.Tensor) -> torch.Tensor:
+def _unembed(cfg: ModelConfig, params: dict, x: torch.Tensor, mesh=None) -> torch.Tensor:
     """Final norm and float32 logits (bf16 operands multiply exactly in
     float32, as the JAX package's preferred_element_type=float32; an int8
-    or int4 lm_head goes through its kernel with a float32 output)."""
+    or int4 lm_head goes through its kernel with a float32 output). On a
+    mesh the vocab-split ``lm_head``'s logits are gathered over ``model``
+    (the tied embedding is replicated)."""
     x = _rms(cfg, x, params["norm_f"])
     if cfg.tie_embeddings:
         return x.float() @ params["embed"].float().T
-    return _qmm(x, params["lm_head"], out_dtype=torch.float32)
+    logits = _qmm(x, params["lm_head"], out_dtype=torch.float32)
+    return logits if mesh is None else mesh.gather(logits, "model", dim=-1)
 
 
 # ---------------------------------------------------------------------------
@@ -534,6 +551,43 @@ def decode_step(
 # ---------------------------------------------------------------------------
 
 
+def ragged_mesh_shardable(cfg: ModelConfig, mesh, max_slots: int,
+                          n_pages: int) -> bool:
+    """Whether the ragged paged attention can run sharded on this mesh:
+    kv heads must split over ``model`` and the decode rows / page pool
+    over ``data`` (the JAX package's predicate of the same name)."""
+    if mesh is None:
+        return False
+    dp = int(mesh.shape.get("data", 1))
+    mp = int(mesh.shape.get("model", 1))
+    return (
+        cfg.n_kv_heads % mp == 0
+        and max_slots % dp == 0
+        and n_pages % dp == 0
+    )
+
+
+def check_mesh_shardable(cfg: ModelConfig, mesh, max_slots: int, n_pages: int) -> None:
+    """Raise, naming the shapes, when the serving path cannot shard over
+    ``mesh``. The JAX package falls back to its XLA reference there; the
+    port has no quiet fallback."""
+    if not cfg.use_pallas:
+        raise NotImplementedError(
+            f"{cfg.name}: the serving path on a mesh runs K9 (use_pallas=True); "
+            "the gather reference is not sharded"
+        )
+    if ragged_mesh_shardable(cfg, mesh, max_slots, n_pages):
+        return
+    dp = int(mesh.shape.get("data", 1))
+    mp = int(mesh.shape.get("model", 1))
+    raise ValueError(
+        f"{cfg.name} cannot shard over the mesh data={dp} x model={mp}: "
+        f"n_kv_heads % model = {cfg.n_kv_heads} % {mp}, "
+        f"max_slots % data = {max_slots} % {dp}, "
+        f"n_pages % data = {n_pages} % {dp} must all be 0"
+    )
+
+
 def _attn_paged(
     cfg: ModelConfig,
     q_dec,
@@ -545,17 +599,28 @@ def _attn_paged(
     chunk_table=None,
     chunk_start=None,
     groups=None,
+    mesh=None,
 ):
     """Paged attention for one layer's decode rows (+ optional prefill
     chunk row) — the kernel seam of the serving path: ``cfg.use_pallas``
     picks K8 (:func:`~llm_consensus_tpu_torch.ops.kernels.
-    ragged_paged_attention`), anything else the gather reference with the
-    same ragged semantics (which ignores ``groups``: outputs equal).
+    ragged_paged_attention`), or K9 (:func:`~llm_consensus_tpu_torch.ops.
+    kernels.ragged_paged_attention_sharded`) on this rank's shard of a
+    mesh (a mesh with ``use_pallas=False`` is refused where its cache and
+    batcher are built, :func:`check_mesh_shardable`); anything else the
+    gather reference with the same ragged semantics (which ignores
+    ``groups``: outputs equal).
 
     q_dec: [B, H, D]; q_chunk: [C, H, D] or None; groups: K8's tuple from
     :func:`_group_args` or None; returns out_dec [B, H, D] (and out_chunk
     [C, H, D] when q_chunk is given)."""
     window = cfg.sliding_window
+    if mesh is not None:
+        return kernels.ragged_paged_attention_sharded(
+            mesh, q_dec, k_pool, v_pool, tables, valid,
+            q_chunk=q_chunk, chunk_table=chunk_table, chunk_start=chunk_start,
+            groups=groups, window=window,
+        )
     if cfg.use_pallas:
         return kernels.ragged_paged_attention(
             q_dec, k_pool, v_pool, tables, valid,
@@ -597,10 +662,29 @@ def _page_index(pos: torch.Tensor, cache: PagedKVCache) -> torch.Tensor:
     return torch.clamp(pos // cache.page_size, max=cache.pages_per_seq - 1)
 
 
-def _paged_layers(cfg: ModelConfig, params: dict, x, cos, sin, cache, attend):
+def _write_pages(cache: PagedKVCache, pages: torch.Tensor) -> torch.Tensor:
+    """Pool indices of K/V writes to global page ids ``pages``: the local
+    index where this cache's shard holds the page, else the shard's
+    reserved first page, which no table maps (the NULL page on shard 0).
+    A write never lands on a page of another row: a mesh rank drops the
+    writes of pages it does not own (an idle row's NULL page, the chunk
+    lane of another shard's slot) into that page. Off a mesh every id is
+    local and this is the identity."""
+    local = pages - cache.page_offset
+    own = (local >= 0) & (local < cache.n_pages)
+    return torch.where(own, local, 0)
+
+
+def _tp_sum(mesh, y: torch.Tensor) -> torch.Tensor:
+    """A row-split product's partial sums, summed over ``model``."""
+    return y if mesh is None else mesh.sum(y, "model")
+
+
+def _paged_layers(cfg: ModelConfig, params: dict, x, cos, sin, cache, attend, mesh=None):
     """The layer loop of the paged steps. ``attend(layer, q, k, v,
     k_pool, v_pool)`` writes the layer's new K/V into its pool views and
-    returns the attention output [..., H, D] shaped like q."""
+    returns the attention output [..., H, D] shaped like q. On a mesh the
+    ``wo`` and ``w_down`` products are summed over ``model``."""
     blocks = params["blocks"]
     for layer in range(cfg.n_layers):
         p = _layer_params(blocks, layer)
@@ -609,9 +693,9 @@ def _paged_layers(cfg: ModelConfig, params: dict, x, cos, sin, cache, attend):
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
         attn = attend(q, k, v, cache.k[layer], cache.v[layer])
-        x = x + _qmm(attn.reshape(*x.shape[:-1], -1), p["wo"])
+        x = x + _tp_sum(mesh, _qmm(attn.reshape(*x.shape[:-1], -1), p["wo"]))
         h2 = _rms(cfg, x, p["mlp_norm"])
-        x = x + _mlp(cfg, p, h2)
+        x = x + _tp_sum(mesh, _mlp(cfg, p, h2))
     return x
 
 
@@ -622,6 +706,7 @@ def decode_step_paged(
     tokens: torch.Tensor,
     cache: PagedKVCache,
     groups=None,
+    mesh=None,
 ) -> tuple[torch.Tensor, PagedKVCache]:
     """One decode step for every cache sequence, paged layout.
 
@@ -633,6 +718,9 @@ def decode_step_paged(
     paged_cache.DecodeGroupArrays` or None): rows sharing a prefix page
     run read it once per group through K8's group pass. Returns (logits
     [max_seqs, V] float32, the cache, its lengths advanced by one).
+    ``mesh``: this rank's rows and shard (module docstring); groups'
+    ``group_id`` and ``shared_start`` are this rank's rows, ``group_rep``
+    global row indices.
     """
     _check_supported(cfg)
     b = tokens.shape[0]
@@ -643,7 +731,7 @@ def decode_step_paged(
     rows = torch.arange(b, device=tokens.device)
     # An idle row's length keeps growing past its (NULL) table; clamp the
     # page index as the JAX package's gather does.
-    pages_now = cache.page_table[rows, _page_index(pos, cache)].long()
+    pages_now = _write_pages(cache, cache.page_table[rows, _page_index(pos, cache)].long())
     offset = pos % pg
     valid = cache.length + 1
     attn_len = _attn_len(cache, valid)
@@ -653,11 +741,12 @@ def decode_step_paged(
         k_pool[pages_now, offset] = k[:, 0].to(k_pool.dtype)
         v_pool[pages_now, offset] = v[:, 0].to(v_pool.dtype)
         return _attn_paged(
-            cfg, q[:, 0], None, k_pool, v_pool, cache.page_table, attn_len, groups=gargs
+            cfg, q[:, 0], None, k_pool, v_pool, cache.page_table, attn_len,
+            groups=gargs, mesh=mesh,
         )[:, None]
 
-    x = _paged_layers(cfg, params, x, cos, sin, cache, attend)
-    logits = _unembed(cfg, params, x[:, 0])
+    x = _paged_layers(cfg, params, x, cos, sin, cache, attend, mesh)
+    logits = _unembed(cfg, params, x[:, 0], mesh)
     cache.length.copy_(valid)
     return logits, cache
 
@@ -670,6 +759,7 @@ def prefill_chunk_paged(
     table: torch.Tensor,
     start: int,
     cache: PagedKVCache,
+    mesh=None,
 ) -> tuple[torch.Tensor, PagedKVCache]:
     """One prompt chunk for ONE sequence, scattered into paged K/V.
 
@@ -683,7 +773,10 @@ def prefill_chunk_paged(
     SAME K8 call as a fused chunk's, with one dead decode row (NULL
     table, length 0), so a standalone chunk and a fused chunk write the
     same cache bytes. Returns ([1, C, D] hidden states, the cache);
-    ``page_table`` and ``length`` are untouched.
+    ``page_table`` and ``length`` are untouched. On a mesh every rank runs
+    the chunk (the lane is replicated over ``data``): only the shard that
+    owns the table's pages writes them, and the hidden states are the
+    same on every rank.
     """
     _check_supported(cfg)
     c = tokens.shape[1]
@@ -692,21 +785,21 @@ def prefill_chunk_paged(
     x = params["embed"][tokens]  # [1, C, D]
     cos, sin = rope_cos_sin(pos[None], cfg.head_dim, cfg.rope_theta, cfg.rope_scaling)
     pg = cache.page_size
-    pages = table.long()[pos // pg]
+    pages = _write_pages(cache, table.long()[pos // pg])
     offs = pos % pg
     dead_tbl = torch.zeros((1, table.shape[0]), dtype=torch.int32, device=dev)
     dead_len = torch.zeros((1,), dtype=torch.int32, device=dev)
-    q_dead = torch.zeros((1, cfg.n_heads, cfg.head_dim), dtype=x.dtype, device=dev)
 
     def attend(q, k, v, k_pool, v_pool):
         k_pool[pages, offs] = k[0].to(k_pool.dtype)
         v_pool[pages, offs] = v[0].to(v_pool.dtype)
+        q_dead = torch.zeros((1, *q.shape[2:]), dtype=q.dtype, device=dev)
         return _attn_paged(
             cfg, q_dead, q[0].contiguous(), k_pool, v_pool, dead_tbl, dead_len,
-            chunk_table=table, chunk_start=int(start),
+            chunk_table=table, chunk_start=int(start), mesh=mesh,
         )[1][None]
 
-    x = _paged_layers(cfg, params, x, cos, sin, cache, attend)
+    x = _paged_layers(cfg, params, x, cos, sin, cache, attend, mesh)
     return x, cache
 
 
@@ -720,6 +813,7 @@ def fused_step_paged(
     chunk_table: torch.Tensor,
     chunk_start: int,
     groups=None,
+    mesh=None,
 ) -> tuple[torch.Tensor, torch.Tensor, PagedKVCache]:
     """One decode step for every cache sequence PLUS one prefill chunk —
     one device program (the fused scheduler step).
@@ -731,6 +825,8 @@ def fused_step_paged(
     MLP; attention is one K8 call with the chunk as one more row. Dense
     MLP only (MoE is refused). Returns (decode logits [B, V] float32,
     chunk hidden [1, C, D], the cache, decode lengths advanced by one).
+    ``mesh``: this rank's decode rows and shard, the chunk replicated, as
+    in :func:`decode_step_paged` and :func:`prefill_chunk_paged`.
     """
     _check_supported(cfg)
     b = tokens.shape[0]
@@ -743,9 +839,9 @@ def fused_step_paged(
     cos, sin = rope_cos_sin(all_pos[None], cfg.head_dim, cfg.rope_theta, cfg.rope_scaling)
     pg = cache.page_size
     rows = torch.arange(b, device=dev)
-    pages_dec = cache.page_table[rows, _page_index(pos, cache)].long()
+    pages_dec = _write_pages(cache, cache.page_table[rows, _page_index(pos, cache)].long())
     offs_dec = pos % pg
-    pages_ch = chunk_table.long()[chunk_pos // pg]
+    pages_ch = _write_pages(cache, chunk_table.long()[chunk_pos // pg])
     offs_ch = chunk_pos % pg
     valid = cache.length + 1
     attn_len = _attn_len(cache, valid)
@@ -763,18 +859,19 @@ def fused_step_paged(
         attn_dec, attn_ch = _attn_paged(
             cfg, q[0, :b].contiguous(), q[0, b:].contiguous(), k_pool, v_pool,
             cache.page_table, attn_len, chunk_table=chunk_table,
-            chunk_start=int(chunk_start), groups=gargs,
+            chunk_start=int(chunk_start), groups=gargs, mesh=mesh,
         )
         return torch.cat([attn_dec, attn_ch])[None]  # [1, B+C, H, D]
 
-    x = _paged_layers(cfg, params, x, cos, sin, cache, attend)
-    logits = _unembed(cfg, params, x[0, :b])
+    x = _paged_layers(cfg, params, x, cos, sin, cache, attend, mesh)
+    logits = _unembed(cfg, params, x[0, :b], mesh)
     cache.length.copy_(valid)
     return logits, x[:, b:], cache
 
 
 @torch.inference_mode()
-def unembed_one(cfg: ModelConfig, params: dict, h: torch.Tensor) -> torch.Tensor:
+def unembed_one(cfg: ModelConfig, params: dict, h: torch.Tensor, mesh=None) -> torch.Tensor:
     """Logits [V] float32 for ONE hidden state [D] — the final-chunk
-    unembed of the chunked-prefill path (a D x V matvec, not C x V)."""
-    return _unembed(cfg, params, h[None])[0]
+    unembed of the chunked-prefill path (a D x V matvec, not C x V); on a
+    mesh gathered over ``model``."""
+    return _unembed(cfg, params, h[None], mesh)[0]

@@ -44,6 +44,7 @@ from llm_consensus_tpu_torch.ops.kernels.ragged_attention import (
     paged_decode_attention,
     paged_decode_attention_grouped,
     ragged_paged_attention,
+    ragged_paged_attention_sharded,
 )
 
 KERNELS = (
@@ -58,6 +59,7 @@ KERNELS = (
     flash_decode_attention_shared_prefix_q8_stacked,
     ragged_paged_attention,
     quant4_matmul_2d,
+    ragged_paged_attention_sharded,
 )
 
 
@@ -81,5 +83,6 @@ __all__ = [
     "quant4_matmul_2d",
     "quant_matmul_2d",
     "ragged_paged_attention",
+    "ragged_paged_attention_sharded",
     "reset_launch_counts",
 ]

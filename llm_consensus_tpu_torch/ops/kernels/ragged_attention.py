@@ -272,6 +272,126 @@ def ragged_paged_attention(
 ragged_paged_attention.launches = 0
 
 
+def _sharded(attend, mesh, q, k_pool, v_pool, page_table, valid_len, *, q_chunk,
+             chunk_table, chunk_start, groups, window):
+    """K9's body over ``attend`` (K8's wrapper or its twin) on this rank's
+    shard; see :func:`ragged_paged_attention_sharded`."""
+    local_pages = k_pool.shape[0]
+    rows = q.shape[0]
+    d = mesh.index("data")
+    poff = d * local_pages
+    # Global page ids -> this shard's pool indices, clamped (NULL and
+    # foreign ids appear only where nothing is read or the output is
+    # dropped: dead rows, the chunk lane on a shard that does not own it).
+    tbl = (page_table - poff).clamp(0, local_pages - 1).to(torch.int32)
+    g = None
+    if groups is not None:
+        gid, rep, gend, sstart = groups
+        g = (gid, (rep - d * rows).clamp(0, rows - 1).to(torch.int32), gend, sstart)
+    if q_chunk is None:
+        return attend(q, k_pool, v_pool, tbl, valid_len, groups=g, window=window)
+    ct = (chunk_table - poff).clamp(0, local_pages - 1).to(torch.int32)
+    out, out_chunk = attend(
+        q, k_pool, v_pool, tbl, valid_len, q_chunk=q_chunk, chunk_table=ct,
+        chunk_start=chunk_start, groups=g, window=window,
+    )
+    # The chunk's first page names its owner shard (the admitting slot's
+    # pool); the others folded local pages under the same masks and
+    # contribute exact zeros to the sum. The test stays on the device.
+    first = chunk_table[0]
+    owner = (first >= poff) & (first < poff + local_pages)
+    out_chunk = torch.where(owner, out_chunk, torch.zeros_like(out_chunk))
+    return out, mesh.sum(out_chunk, "data")
+
+
+def ragged_paged_attention_sharded_plain(
+    mesh,
+    q: torch.Tensor,
+    k_pool: torch.Tensor,
+    v_pool: torch.Tensor,
+    page_table: torch.Tensor,
+    valid_len: torch.Tensor,
+    *,
+    q_chunk: torch.Tensor | None = None,
+    chunk_table: torch.Tensor | None = None,
+    chunk_start=None,
+    groups: tuple | None = None,
+    window: int = 0,
+):
+    """The plain twin of K9: the same wrapper over
+    :func:`ragged_paged_attention_plain`."""
+    return _sharded(
+        ragged_paged_attention_plain, mesh, q, k_pool, v_pool, page_table,
+        valid_len, q_chunk=q_chunk, chunk_table=chunk_table,
+        chunk_start=chunk_start, groups=groups, window=window,
+    )
+
+
+def ragged_paged_attention_sharded(
+    mesh,
+    q: torch.Tensor,
+    k_pool: torch.Tensor,
+    v_pool: torch.Tensor,
+    page_table: torch.Tensor,
+    valid_len: torch.Tensor,
+    *,
+    q_chunk: torch.Tensor | None = None,
+    chunk_table: torch.Tensor | None = None,
+    chunk_start=None,
+    groups: tuple | None = None,
+    window: int = 0,
+):
+    """K9: :func:`ragged_paged_attention` on a dp x mp mesh, one rank's
+    shard — the counterpart of ``llm_consensus_tpu/ops/pallas/
+    attention.py``'s ``ragged_paged_attention_sharded`` (K8 under
+    ``shard_map``).
+
+    Each rank passes its own shard: q rows [B/dp, (NQ,) H/mp, D]; the pool
+    [n_pages/dp, page, Hkv/mp, D] (pages of data shard d are the global
+    ids [d * n_pages/dp, (d + 1) * n_pages/dp)); its rows' tables (GLOBAL
+    page ids) and lengths; the chunk lane (q_chunk [C, H/mp, D], its
+    global table, its start) replicated over ``data``; ``groups`` with
+    group_id and shared_start of its rows, group_rep (GLOBAL row indices)
+    and group_end replicated. Outputs are this rank's: out rows [B/dp, ...]
+    and, with a chunk, the chunk's [C, H/mp, D], the same on every data
+    shard.
+
+    What it does: rebases the global page ids of the tables and the chunk
+    table to local pool indices (``id - d * local_pages``, clamped, as the
+    JAX wrapper does); rebases ``group_rep`` to a local row the same way
+    (groups never span shards: one prefix registry per data shard), as
+    the JAX wrapper does, rather than passing only the groups with local
+    members. A group with no member on this shard costs no reads and
+    changes no output: K8's group pass compacts the group's members from
+    ``group_id`` and a block with no member query returns before it reads
+    a page (``csrc/ragged_paged_attention.cu``, the group pass), and the
+    twin masks such a group out. Then K8 runs on the local shard, the
+    chunk output is zeroed on the shards that do not own the chunk (the
+    owner is the shard whose range holds ``chunk_table[0]``) and summed
+    over ``data``.
+
+    No CUDA source of its own: the rebase is three elementwise ops, done
+    outside the kernel as in JAX (where they sit outside the
+    ``pallas_call``), as K5 is K4 on a view. CUDA tensors launch K8 (which
+    counts its own launches) and count one launch of K9 per call in
+    ``ragged_paged_attention_sharded.launches``; CPU tensors take the twin
+    (:func:`ragged_paged_attention_sharded_plain`).
+    """
+    kw = dict(q_chunk=q_chunk, chunk_table=chunk_table, chunk_start=chunk_start,
+              groups=groups, window=window)
+    if not q.is_cuda:
+        return ragged_paged_attention_sharded_plain(
+            mesh, q, k_pool, v_pool, page_table, valid_len, **kw
+        )
+    out = _sharded(ragged_paged_attention, mesh, q, k_pool, v_pool, page_table,
+                   valid_len, **kw)
+    ragged_paged_attention_sharded.launches += 1
+    return out
+
+
+ragged_paged_attention_sharded.launches = 0
+
+
 def paged_decode_attention(
     q: torch.Tensor,
     k_pool: torch.Tensor,

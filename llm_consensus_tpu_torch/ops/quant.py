@@ -17,6 +17,15 @@ also leaves outside any kernel. The choice is made from shapes before
 anything launches. A packed int4 leaf goes the same way through the
 W4A16 kernel (K10) under ``quant4_matmul_supported``.
 
+On a dp x mp mesh each rank holds its Megatron shard of every leaf
+(:func:`~llm_consensus_tpu_torch.parallel.partitioning.shard_params`), so
+:func:`matmul` sees and routes the LOCAL shapes (llama-1b at model=2: wq
+N 1024, wk/wv 512, wo K 1024, w_gate/w_up N 2816, w_down K 2816, lm_head
+N 16000, all multiples of 128). The JAX package runs its int8 products
+through a dequantized ``jnp`` product on a mesh, because a ``pallas_call``
+is opaque to GSPMD; here each rank's product is a single-device product
+of the same function, so K6 runs it.
+
 The JAX package's ``StackedQuant`` is not needed: it exists because a
 Pallas operand must be a whole buffer, while here the layer loop passes
 ``w.q[l]`` and ``w.scale[l]``, zero-copy views, straight to the kernel.

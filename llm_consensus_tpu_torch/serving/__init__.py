@@ -1,7 +1,8 @@
 """Serving: token-level continuous batching over the paged KV cache.
 
 :class:`ContinuousBatcher` admits and retires requests at decode-step
-granularity on one card (the throughput-serving mode);
+granularity on one card, or from rank 0 of a dp x mp mesh whose other
+ranks run :func:`serve_worker` (the throughput-serving mode);
 :class:`ContinuousBackend` puts it behind the Backend seam the
 Coordinator calls. The JAX package's request-level scheduler, replica
 fleet, multi-model set and host tier are not ported yet.
@@ -12,6 +13,7 @@ from llm_consensus_tpu_torch.serving.continuous import (
     ContinuousBatcher,
     ContinuousConfig,
     ServeResult,
+    serve_worker,
 )
 
 __all__ = [
@@ -19,4 +21,5 @@ __all__ = [
     "ContinuousBatcher",
     "ContinuousConfig",
     "ServeResult",
+    "serve_worker",
 ]

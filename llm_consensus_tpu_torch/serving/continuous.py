@@ -33,17 +33,35 @@ retirement change page tables and lengths, never shapes.
   (:func:`~llm_consensus_tpu_torch.models.transformer.fused_step_paged`),
   one device program per scheduler iteration.
 
+- **A dp x mp mesh** (``mesh=``, a :class:`~llm_consensus_tpu_torch.
+  parallel.mesh.Mesh`): slots and the page pool split over ``data``, kv
+  heads and the weights' Megatron shards over ``model``, attention through
+  K9. One :class:`PagePool` and one :class:`PrefixRegistry` per data
+  shard, slot s drawing from shard ``s * dp // max_slots`` (the JAX
+  package's affinity), so every table, prefix share and group stays on
+  one shard. Every rank must take the same steps in the same order, or a
+  collective waits forever: so the scheduler runs on rank 0 alone, and
+  each device operation it makes (a step with its host inputs: tokens,
+  tables, chunk lane, groups and sampling rows; an install, release or
+  page copy) is broadcast first; the other ranks run :func:`serve_worker`,
+  which executes exactly those operations until a stop message. Each rank
+  samples its own rows from logits gathered over ``model`` with the
+  requests' own generators, and the tokens are gathered over ``data``, so
+  every rank holds the same next tokens before the next step.
+
 A host thread drives the loop; it sets its device and runs under
-``torch.inference_mode``. Outputs are the same at every pipeline depth
-and with the fused step on or off (tested against the JAX batcher).
+``torch.inference_mode``. Outputs are the same at every pipeline depth,
+with the fused step on or off, and on a mesh (tested against the JAX
+single-device batcher).
 
 Not ported yet (each raises at construction): the host-RAM offload tier
 (``host_cache_bytes``), speculative verify rows (``spec_k``, a draft),
 multi-round decode (``decode_rounds``), multi-step programs
 (``steps_per_sync``), the legacy dense admission (``prefill_chunk=0``),
-roofline attribution (``hbm_gbps``), the adaptive controller and meshes.
-The Prometheus families, the flight recorder, request tracing and the
-fleet hooks come with the gateway and fleet slices.
+roofline attribution (``hbm_gbps``) and the adaptive controller; int4
+weights on a mesh with ``model`` > 1. The Prometheus families, the flight
+recorder, request tracing and the fleet hooks come with the gateway and
+fleet slices.
 """
 
 from __future__ import annotations
@@ -78,13 +96,16 @@ from llm_consensus_tpu_torch.models.paged_cache import (
     install_seq,
     release_seq,
 )
+from llm_consensus_tpu_torch.models.paged_cache import DecodeGroupArrays
 from llm_consensus_tpu_torch.models.transformer import (
     _check_supported,
+    check_mesh_shardable,
     decode_step_paged,
     fused_step_paged,
     prefill_chunk_paged,
     unembed_one,
 )
+from llm_consensus_tpu_torch.parallel.partitioning import shard_params
 from llm_consensus_tpu_torch.utils.device import h2d, resolve_device, to_device
 from llm_consensus_tpu_torch.utils.stops import (
     VisibleIdFilter,
@@ -142,7 +163,7 @@ class ContinuousConfig:
     hbm_gbps: float = 0.0
 
 
-def _check_unported(c: ContinuousConfig, mesh, draft, host_store, controller) -> None:
+def _check_unported(c: ContinuousConfig, draft, host_store, controller) -> None:
     """Refuse the settings of later slices before any device work."""
     unported = (
         (c.host_cache_bytes > 0, "host_cache_bytes > 0: the host-RAM offload "
@@ -161,8 +182,6 @@ def _check_unported(c: ContinuousConfig, mesh, draft, host_store, controller) ->
          "the host-tier slice"),
         (controller is not None, "a controller: adaptive control comes "
          "with the control slice"),
-        (mesh is not None, "a mesh: multi-device serving comes with the "
-         "parallel slice"),
     )
     for hit, what in unported:
         if hit:
@@ -248,14 +267,209 @@ class _Inflight:
     program's sampled tokens (and, after a final fused chunk, the
     request's first token at index ``max_slots``) are copied into behind
     the program; ``event`` is recorded after that copy (None on the CPU,
-    where the copy is synchronous)."""
+    where the copy is synchronous). The program's tokens stay on the card
+    as the next dispatch's input (:class:`_Programs`)."""
 
     host: torch.Tensor
     event: object
-    next_input: torch.Tensor  # device [slots] tokens: the next dispatch's input
     t0: float
     rows: list
     chunk: _InflightChunk | None = None
+
+
+# Seconds an idle mesh scheduler lets pass before it sends its ranks a
+# no-op, so that their wait for the next message never reaches the
+# world's collective timeout.
+_MESH_IDLE_TICK_S = 1.0
+
+
+class _Programs:
+    """The batcher's device work on this rank: the params (this rank's
+    shard on a mesh), the paged cache (its shard), and every operation
+    the scheduler runs on them — a page copy, a row's install or release,
+    a standalone prefill chunk, a decode step (fused with a chunk or not)
+    and its sampling. Each takes host values only (numpy arrays, numbers),
+    so that a mesh's scheduler can send it as one message.
+
+    :meth:`call` runs an operation here and, on a mesh, first sends it to
+    the other ranks (:func:`serve_worker` executes it there), which keeps
+    every rank's collectives in the same order. The last step's sampled
+    tokens stay on the device (``_prev``): the next step reads them there
+    unless told to take the host's.
+    """
+
+    OPS = ("copy_page", "install", "release", "prefill", "step", "idle")
+
+    def __init__(self, cfg: ModelConfig, params: dict, c: ContinuousConfig,
+                 device: torch.device, mesh=None):
+        self.cfg = cfg
+        self.mesh = mesh
+        self.device = device
+        self.params = shard_params(params, mesh) if mesh is not None else to_device(
+            params, device)
+        self.cache = PagedKVCache.create(
+            cfg, c.n_pages, c.page_size, c.max_slots, c.pages_per_seq,
+            device=device, mesh=mesh,
+        )
+        self._lo = self.cache.row_offset
+        self._hi = self._lo + self.cache.max_seqs
+        self._prev: torch.Tensor | None = None
+        self._groups_host = None
+        self._groups_dev: DecodeGroupArrays | None = None
+        self.last_send = time.monotonic()  # the last message to the other ranks
+
+    @property
+    def sends(self) -> bool:
+        return self.mesh is not None and self.mesh.config.size > 1
+
+    def call(self, op: str, *args):
+        if self.sends:
+            self.mesh.broadcast_object((op, args))
+            self.last_send = time.monotonic()
+        return getattr(self, "_" + op)(*args)
+
+    # -- the operations (run on every rank, in the same order) -----------
+
+    def _idle(self) -> None:
+        pass
+
+    def _copy_page(self, src: int, dst: int) -> None:
+        copy_page(self.cache, src, dst)
+
+    def _install(self, idx: int, table: np.ndarray, length: int) -> None:
+        install_seq(self.cache, idx, table, length)
+
+    def _release(self, idx: int) -> None:
+        release_seq(self.cache, idx)
+
+    def _prefill(self, ids: np.ndarray, table: np.ndarray, start: int, first):
+        """One standalone chunk; ``first`` (the hidden row of the last
+        prompt position, then :meth:`_first_token`'s sampling args) or
+        None. Returns the first token [1] on the device, or None."""
+        dev = self.device
+        hidden, _ = prefill_chunk_paged(
+            self.cfg, self.params, h2d(ids[None], dev, torch.int64),
+            h2d(table, dev, torch.int32), start, self.cache, mesh=self.mesh,
+        )
+        return None if first is None else self._first_token(hidden[0, first[0]], *first[1:])
+
+    def _first_token(self, h: torch.Tensor, temperature: float, top_k: int,
+                     top_p: float, seed: int) -> torch.Tensor:
+        """A request's first token [1] on the device, sampled from the
+        hidden state of its last prompt position — the (seed, 0) draw.
+        The same on every rank (the chunk's hidden states are)."""
+        dev = self.device
+        logits = unembed_one(self.cfg, self.params, h, mesh=self.mesh)[None]
+        key = request_generator(seed, 0, dev) if temperature > 0 else None
+        tok, _ = sample_token_per_request(
+            logits,
+            [key],
+            h2d([temperature], dev, torch.float32),
+            h2d([top_k], dev, torch.int32),
+            h2d([top_p], dev, torch.float32),
+            filters_active=(top_k != 0 or top_p != 1.0),
+        )
+        return tok
+
+    def _group_arrays(self, host) -> DecodeGroupArrays | None:
+        """The step's group arrays on the device: this rank's rows of
+        group_id and shared_start, group_rep and group_pages whole. The
+        device copy is kept while the arrays keep their values (compared
+        by value: a worker rank unpickles a new tuple every step)."""
+        if host is None:
+            return None
+        same = self._groups_host is not None and all(
+            np.array_equal(a, b) for a, b in zip(host, self._groups_host)
+        )
+        if not same:
+            self._groups_dev = DecodeGroupArrays.from_host(
+                host, self.device, slice(self._lo, self._hi)
+            )
+            self._groups_host = host
+        return self._groups_dev
+
+    def _step(self, use_prev: bool, dirty: np.ndarray, last: np.ndarray, chunk,
+              groups, sampling):
+        """One decode program over every slot, with a chunk riding it when
+        ``chunk`` is (ids, table, start, first) — ``first`` as in
+        :meth:`_prefill`. Input tokens: the last step's output on the
+        device where ``use_prev``, with the ``dirty`` rows taken from
+        ``last``; else ``last``. ``sampling``: (temperature, seed, count,
+        top_k, top_p) per slot and whether any filter is active. Returns
+        (next tokens [max_slots] int32 on the device, the same on every
+        rank; the chunk's first token [1] or None)."""
+        dev = self.device
+        if use_prev:
+            tokens = self._prev
+            if dirty.any():
+                tokens = torch.where(h2d(dirty, dev), h2d(last, dev), tokens)
+        else:
+            tokens = h2d(last, dev)
+        tokens = tokens[self._lo:self._hi, None]
+        g = self._group_arrays(groups)
+        first = None
+        if chunk is None:
+            logits, _ = decode_step_paged(
+                self.cfg, self.params, tokens, self.cache, groups=g, mesh=self.mesh
+            )
+        else:
+            ids, table, start, first_args = chunk
+            logits, hidden, _ = fused_step_paged(
+                self.cfg, self.params, tokens, self.cache,
+                h2d(ids[None], dev, torch.int64), h2d(table, dev, torch.int32),
+                start, groups=g, mesh=self.mesh,
+            )
+            if first_args is not None:
+                first = self._first_token(hidden[0, first_args[0]], *first_args[1:])
+        nxt = self._sample_rows(logits, *sampling)
+        if self.mesh is not None:
+            nxt = self.mesh.gather(nxt, "data", dim=0)
+        self._prev = nxt
+        return nxt, first
+
+    def _sample_rows(self, logits, temps, seeds, counts, topks, topps,
+                     filters_active: bool) -> torch.Tensor:
+        """This rank's rows' tokens: each sampling row at its own (seed,
+        count) stream; greedy rows (idle ones included) the argmax."""
+        dev = self.device
+        lo, hi = self._lo, self._hi
+        keys = [
+            request_generator(seeds[i], counts[i], dev) if temps[i] > 0 else None
+            for i in range(lo, hi)
+        ]
+        tok, _ = sample_token_per_request(
+            logits, keys, h2d(temps[lo:hi], dev), h2d(topks[lo:hi], dev),
+            h2d(topps[lo:hi], dev), filters_active=filters_active,
+        )
+        return tok
+
+
+def serve_worker(cfg: ModelConfig, params: dict, config: ContinuousConfig, mesh) -> int:
+    """The loop of every mesh rank but rank 0: build this rank's shard of
+    the batcher's device state, then run each operation rank 0's
+    :class:`ContinuousBatcher` sends, in order, until it sends stop.
+    Returns the number of operations run. ``params``: the full tree, the
+    same on every rank (made from one seed); it is cut to this rank's
+    shard here."""
+    if mesh.rank == 0:
+        raise ValueError("rank 0 runs the ContinuousBatcher, not serve_worker")
+    c = config or ContinuousConfig()
+    _check_unported(c, None, None, None)
+    _check_supported(cfg)
+    check_mesh_shardable(cfg, mesh, c.max_slots, c.n_pages)
+    if mesh.device.type == "cuda":
+        torch.cuda.set_device(mesh.device)
+    progs = _Programs(cfg, params, c, mesh.device, mesh)
+    ran = 0
+    with torch.inference_mode():
+        while True:
+            op, args = mesh.broadcast_object()
+            if op == "stop":
+                return ran
+            if op not in _Programs.OPS:
+                raise ValueError(f"serve_worker: unknown operation {op!r}")
+            getattr(progs, "_" + op)(*args)
+            ran += 1
 
 
 class ContinuousBatcher:
@@ -263,7 +477,13 @@ class ContinuousBatcher:
 
     ``device``: where the pool and the programs live (the card unless
     ``"cpu"``); ``params`` are moved there. The pool is bfloat16, as in
-    the JAX package, whatever the weights' type.
+    the JAX package, whatever the weights' type. ``mesh``: serve on a dp x
+    mp mesh from rank 0, on the mesh's device (a ``device`` that disagrees
+    raises); ``params`` is the full tree, cut to rank 0's shard here.
+    Every other rank runs :func:`serve_worker` with the same arguments
+    meanwhile. A mesh that
+    does not divide the model, the slots or the pool raises
+    (``transformer.check_mesh_shardable``).
     """
 
     def __init__(
@@ -279,27 +499,43 @@ class ContinuousBatcher:
         device: str | torch.device | None = None,
     ):
         c = config or ContinuousConfig()
-        _check_unported(c, mesh, draft, host_store, controller)
+        _check_unported(c, draft, host_store, controller)
         _check_supported(cfg)
         self.cfg = cfg
         self.config = c
         self.tokenizer = tokenizer or ByteTokenizer()
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self._dp = self._mp = 1
+        if mesh is not None:
+            if mesh.rank != 0:
+                raise ValueError(
+                    f"rank {mesh.rank}: the batcher's scheduler runs on rank 0; "
+                    "the other ranks run serve_worker"
+                )
+            check_mesh_shardable(cfg, mesh, c.max_slots, c.n_pages)
+            self._dp, self._mp = mesh.size("data"), mesh.size("model")
+            self.device = mesh.device_for(device)
+        else:
+            self.device = resolve_device(device)
         if self.device.type == "cuda" and self.device.index is None:
             # The worker thread sets this device, which needs an index.
             self.device = torch.device("cuda", torch.cuda.current_device())
-        self.params = to_device(params, self.device)
-        self.cache = PagedKVCache.create(
-            cfg, c.n_pages, c.page_size, c.max_slots, c.pages_per_seq,
-            device=self.device,
-        )
-        # Host-side refcounted page allocator; page 0 is the NULL page.
-        self._pool = PagePool(p for p in range(c.n_pages) if p != NULL_PAGE)
-        self._registry = PrefixRegistry(self._pool, c.page_size)
+        self._progs = _Programs(cfg, params, c, self.device, mesh)
+        # Host-side refcounted page allocators, one per data shard: slot s
+        # (slots split in contiguous blocks) draws only from its shard's
+        # page range, whose first page is reserved (the NULL page on shard
+        # 0; see models.paged_cache), so a table only ever points at pages
+        # of its own shard and prefix sharing stays inside one shard.
+        per = c.n_pages // self._dp
+        self._shard_of_slot = [s * self._dp // c.max_slots for s in range(c.max_slots)]
+        self._pools = [PagePool(range(j * per + 1, (j + 1) * per)) for j in range(self._dp)]
+        self._registries = [PrefixRegistry(pool, c.page_size) for pool in self._pools]
         self._group_decode = (
             c.prefix_attention and c.share_prefix and cfg.use_pallas
         )
-        self._groups = GroupTracker(c.max_slots, c.page_size, device=self.device)
+        # One tracker for every shard: a group's members share their first
+        # prefix page, so a group never spans shards.
+        self._groups = GroupTracker(c.max_slots, c.page_size)
         # KV bytes one token costs per read across all layers (k + v).
         self._kv_token_bytes = (
             2 * cfg.n_layers * cfg.n_kv_heads * cfg.head_dim
@@ -359,10 +595,20 @@ class ContinuousBatcher:
         self._stop = threading.Event()
         self._work = threading.Event()
         self._prefill_rr = 0
+        self._stopped_ranks = False
         self._thread = threading.Thread(
             target=self._run_guarded, name="continuous-batcher", daemon=True
         )
         self._thread.start()
+
+    @property
+    def cache(self) -> PagedKVCache:
+        """This rank's paged cache (the whole pool off a mesh)."""
+        return self._progs.cache
+
+    @property
+    def params(self) -> dict:
+        return self._progs.params
 
     # -- public API -----------------------------------------------------
 
@@ -449,7 +695,11 @@ class ContinuousBatcher:
         snapshot (the worker mutates them under the same lock).
         ``free_pages`` counts reclaimable prefix-registry pages as free."""
         with self._lock:
-            reg = self._registry
+            regs = self._registries
+
+            def reg_sum(attr):
+                return sum(getattr(r, attr) for r in regs)
+
             return {
                 "active_slots": self._decoding(),
                 "prefilling_slots": sum(
@@ -457,18 +707,22 @@ class ContinuousBatcher:
                 ),
                 "max_slots": self.config.max_slots,
                 "waiting": len(self._waiting),
-                "free_pages": self._pool.available + reg.reclaimable_pages(),
-                "total_pages": self.config.n_pages - 1,
-                "cached_pages": reg.cached_pages,
+                "free_pages": sum(
+                    p.available + r.reclaimable_pages()
+                    for p, r in zip(self._pools, regs)
+                ),
+                "total_pages": self.config.n_pages - self._dp,
+                "cached_pages": reg_sum("cached_pages"),
                 "completed_requests": self._completed,
                 "generated_tokens": self._generated_tokens,
                 "decode_steps": self._decode_steps,
                 "prefill_chunks": self._prefill_chunks,
-                "prefix_lookups": reg.lookups,
-                "prefix_hits": reg.hits,
-                "prefix_pages_shared": reg.pages_shared,
-                "prefix_pages_copied": reg.pages_copied,
-                "prefix_evictions": reg.evictions,
+                "prefix_lookups": reg_sum("lookups"),
+                "prefix_hits": reg_sum("hits"),
+                "prefix_pages_shared": reg_sum("pages_shared"),
+                "prefix_pages_copied": reg_sum("pages_copied"),
+                "prefix_evictions": reg_sum("evictions"),
+                "prefix_pages_shared_per_shard": [r.pages_shared for r in regs],
                 "shared_kv_bytes_saved": self._kv_bytes_saved,
                 "decode_group_size": self._groups.largest_group,
                 "decode_group_peak": self._groups.peak_group,
@@ -490,14 +744,25 @@ class ContinuousBatcher:
                 "ttft_seconds_count": self._ttft_count,
                 "tbt_seconds_sum": self._tbt_sum,
                 "tbt_seconds_count": self._tbt_count,
+                "mesh_data_shards": self._dp,
+                "mesh_model_shards": self._mp,
+                "collective_seconds": (
+                    self.mesh.collective_seconds if self.mesh is not None else 0.0
+                ),
             }
 
     def close(self) -> None:
+        """Stop the loop, fail what is still pending and, on a mesh, send
+        the other ranks their stop (once the loop, the only other sender,
+        has ended)."""
         self._stop.set()
         self._work.set()
         self._thread.join(timeout=10)
         with self._lock:
             self._fail_all(RuntimeError("batcher stopped"))
+        if self._progs.sends and not self._thread.is_alive() and not self._stopped_ranks:
+            self._stopped_ranks = True
+            self.mesh.broadcast_object(("stop", ()))
 
     def _fail_all(self, exc: Exception) -> None:
         """Resolve every waiting and in-slot future with ``exc`` (caller
@@ -554,7 +819,8 @@ class ContinuousBatcher:
                     return
                 req = self._waiting[0]
                 n_pages = self._pages_needed(req)
-                fits_ever = min(c.pages_per_seq, c.n_pages - 1)
+                usable = c.n_pages // self._dp - 1  # one shard's pool
+                fits_ever = min(c.pages_per_seq, usable)
                 if n_pages > fits_ever:
                     self._waiting.popleft()
                     req.future.set_exception(
@@ -562,7 +828,8 @@ class ContinuousBatcher:
                             f"request needs {n_pages} pages but the "
                             f"configuration caps a sequence at {fits_ever} "
                             f"(pages_per_seq={c.pages_per_seq}, usable "
-                            f"pool={c.n_pages - 1})"
+                            f"pool={usable}"
+                            + (f" per data shard of {self._dp})" if self._dp > 1 else ")")
                         )
                     )
                     continue
@@ -576,19 +843,31 @@ class ContinuousBatcher:
         """Claim a slot and pages for ``req`` and stage it as a
         prefilling slot (caller holds the lock). False when nothing fits.
 
-        Match the prompt against the prefix registry, size the table from
-        the true chunk coverage, evict registry-only pages if the free
-        list falls short, allocate, stage the boundary-page copy, and
-        register this prompt's own full pages for successors."""
+        Per candidate slot (the first free slot of each data shard, in
+        slot order): match the prompt against the shard's prefix
+        registry, size the table from the true chunk coverage, evict
+        registry-only pages if the free list falls short, allocate, stage
+        the boundary-page copy, and register this prompt's own full pages
+        for successors."""
+        seen: set[int] = set()
+        for i, slot in enumerate(self._slots):
+            shard = self._shard_of_slot[i]
+            if slot is not None or shard in seen:
+                continue
+            seen.add(shard)
+            if self._admit_on(i, shard, req):
+                return True
+        return False
+
+    def _admit_on(self, i: int, shard: int, req: _Request) -> bool:
+        """:meth:`_admit_chunked` on free slot ``i`` of data shard
+        ``shard``, with that shard's pool and registry."""
         c = self.config
         ids = req.prompt_ids
         L = len(ids)
         bucket = self._bucket(L)
         chunk = self._chunk_width(bucket)
-        i = next((j for j, s in enumerate(self._slots) if s is None), None)
-        if i is None:
-            return False
-        pool, registry = self._pool, self._registry
+        pool, registry = self._pools[shard], self._registries[shard]
         # Plan A shares the registered prefix; plan B admits unshared when
         # the shared table would overhang the page budget.
         for use_share in (True, False) if c.share_prefix else (False,):
@@ -660,7 +939,7 @@ class ContinuousBatcher:
         src, dst = self._pending_copy
         self._pending_copy = None
         self._flush_pipeline()
-        copy_page(self.cache, int(src), int(dst))
+        self._progs.call("copy_page", int(src), int(dst))
 
     def _flush_pipeline(self) -> None:
         """Fetch every in-flight program (without the admission lock: the
@@ -698,16 +977,19 @@ class ContinuousBatcher:
         return None
 
     def _chunk_args(self, slot: _Slot):
-        """(chunk token ids [1, C], table [P], written end, done) of the
-        slot's next chunk, on the device."""
+        """The slot's next chunk as :class:`_Programs` takes it — (token
+        ids [C], table [P], start, first) with ``first`` the first token's
+        sampling args when the chunk covers the prompt's end, else None —
+        and the written end."""
         ids = slot.padded_ids[slot.next_pos : slot.next_pos + slot.chunk]
         written_end = slot.next_pos + slot.chunk
-        return (
-            h2d(ids[None], self.device, torch.int64),
-            h2d(slot.table, self.device, torch.int32),
-            written_end,
-            written_end >= slot.prompt_len,
-        )
+        first = None
+        if written_end >= slot.prompt_len:
+            req = slot.request
+            # The first token from the last REAL position's hidden state.
+            first = (slot.prompt_len - 1 - slot.next_pos, req.temperature,
+                     req.top_k, req.top_p, req.seed)
+        return (ids, slot.table, slot.next_pos, first), written_end
 
     def _mark_written(self, slot: _Slot, written_end: int) -> None:
         """Flip the registry nodes this slot's chunks have now written."""
@@ -722,42 +1004,21 @@ class ContinuousBatcher:
         (no decode batch to ride, or the fused step is off)."""
         slot = self._slots[idx]
         self._count_program("prefill")
-        tokens, table, written_end, done = self._chunk_args(slot)
-        hidden, _ = prefill_chunk_paged(
-            self.cfg, self.params, tokens, table, slot.next_pos, self.cache
-        )
-        first = None
-        if done:
-            # The first token from the last REAL position's hidden state.
-            h = hidden[0, slot.prompt_len - 1 - slot.next_pos]
-            first = int(self._sample_first(slot.request, h)[0])  # host sync
+        chunk, written_end = self._chunk_args(slot)
+        first = self._progs.call("prefill", *chunk)
+        if first is not None:
+            first = int(first[0])  # host sync
         self._mark_written(slot, written_end)
         with self._lock:
             self._prefill_chunks += 1
-        if done:
+        if first is not None:
             self._finish_prefill(idx, slot, first)
 
     def _finish_prefill(self, idx: int, slot: _Slot, first: int) -> None:
         """The final chunk landed: make the row visible to the decode
         program (table and true length) and flip it to decoding."""
-        install_seq(self.cache, idx, slot.table, slot.prompt_len)
+        self._progs.call("install", idx, slot.table, slot.prompt_len)
         self._activate(idx, slot, first)
-
-    def _sample_first(self, req: _Request, h: torch.Tensor) -> torch.Tensor:
-        """The request's first token [1] on the device, sampled from the
-        hidden state of its last prompt position — the (seed, 0) draw."""
-        logits = unembed_one(self.cfg, self.params, h)[None]
-        key = request_generator(req.seed, 0, self.device) if req.temperature > 0 else None
-        dev = self.device
-        tok, _ = sample_token_per_request(
-            logits,
-            [key],
-            h2d([req.temperature], dev, torch.float32),
-            h2d([req.top_k], dev, torch.int32),
-            h2d([req.top_p], dev, torch.float32),
-            filters_active=(req.top_k != 0 or req.top_p != 1.0),
-        )
-        return tok
 
     def _activate(self, idx: int, slot: _Slot, first: int) -> None:
         """Flip a slot to decoding with its first sampled token."""
@@ -830,12 +1091,13 @@ class ContinuousBatcher:
     def _retire(self, idx: int) -> None:
         slot = self._slots[idx]
         self._groups.remove(idx)
-        release_seq(self.cache, idx)
+        self._progs.call("release", idx)
+        pool = self._pools[self._shard_of_slot[idx]]
         with self._lock:
             # Refcounted release: private pages return to the free list;
             # shared pages stay for their other readers and the registry.
             for p in slot.pages:
-                self._pool.release(p)
+                pool.release(p)
             self._slots[idx] = None
             self._completed += 1
             self._generated_tokens += len(slot.generated)
@@ -852,24 +1114,17 @@ class ContinuousBatcher:
                 )
             )
 
-    def _sample_rows(self, logits: torch.Tensor, rows_now) -> torch.Tensor:
-        """Tokens [slots] int32 for one decode step: each decoding row at
-        its own (seed, count) stream; idle rows greedy (discarded)."""
-        dev = self.device
-        keys = [None] * self.config.max_slots
+    def _sampling_rows(self, rows_now) -> tuple:
+        """A step's sampling args for :meth:`_Programs._step`: each
+        decoding row at its own (seed, count) stream, idle rows greedy
+        (discarded)."""
         temps = np.zeros_like(self._temps)
-        for i, s in rows_now:
+        for i, _ in rows_now:
             temps[i] = self._temps[i]
-            if temps[i] > 0:
-                keys[i] = request_generator(self._seeds[i], self._counts[i], dev)
         filters_active = any(
             s.request.top_k != 0 or s.request.top_p != 1.0 for _, s in rows_now
         )
-        tok, _ = sample_token_per_request(
-            logits, keys, h2d(temps, dev), h2d(self._topks, dev),
-            h2d(self._topps, dev), filters_active=filters_active,
-        )
-        return tok
+        return temps, self._seeds, self._counts, self._topks, self._topps, filters_active
 
     def _dispatch(self, chunk_idx: int | None = None) -> None:
         """Enqueue ONE decode program for the current decode batch.
@@ -887,7 +1142,7 @@ class ContinuousBatcher:
             (i, s) for i, s in enumerate(self._slots)
             if s is not None and s.phase == "decode"
         ]
-        groups = self._groups.arrays() if self._group_decode else None
+        groups = self._groups.host_arrays() if self._group_decode else None
         t0 = time.perf_counter()
         overhead = None
         if self._last_step_end is not None:
@@ -900,37 +1155,21 @@ class ContinuousBatcher:
                 self._sched_overhead_count += 1
         self._last_step_end = None
         dirty = np.array(self._tok_dirty)
-        if self._inflight:
-            tokens = self._inflight[-1].next_input
-            if dirty.any():
-                tokens = torch.where(
-                    h2d(dirty, dev), h2d(self._last_tokens, dev), tokens
-                )
-        else:
-            tokens = h2d(self._last_tokens, dev)
         self._tok_dirty[:] = False
-        first = None
-        chunk_rec = None
-        if chunk_idx is None:
-            logits, _ = decode_step_paged(
-                self.cfg, self.params, tokens[:, None], self.cache, groups=groups
-            )
+        chunk = chunk_rec = None
+        if chunk_idx is not None:
+            slot = self._slots[chunk_idx]
+            chunk, written_end = self._chunk_args(slot)
+            chunk_rec = _InflightChunk(idx=chunk_idx, slot=slot, done=chunk[3] is not None)
+        next_tok, first = self._progs.call(
+            "step", bool(self._inflight), dirty, self._last_tokens, chunk,
+            groups, self._sampling_rows(rows_now),
+        )
+        if chunk_rec is None:
             self._count_program("decode", rows=len(rows_now))
         else:
-            slot = self._slots[chunk_idx]
-            ctoks, ctable, written_end, done = self._chunk_args(slot)
-            logits, hidden, _ = fused_step_paged(
-                self.cfg, self.params, tokens[:, None], self.cache, ctoks,
-                ctable, slot.next_pos, groups=groups,
-            )
-            if done:
-                first = self._sample_first(
-                    slot.request, hidden[0, slot.prompt_len - 1 - slot.next_pos]
-                )
             self._count_program("fused", rows=len(rows_now) + 1)
-            chunk_rec = _InflightChunk(idx=chunk_idx, slot=slot, done=done)
-            self._mark_written(slot, written_end)
-        next_tok = self._sample_rows(logits, rows_now)
+            self._mark_written(chunk_rec.slot, written_end)
         for i, _ in rows_now:
             self._counts[i] += 1
         # The tokens (and a final chunk's first token) come back through a
@@ -945,10 +1184,7 @@ class ContinuousBatcher:
             event = torch.cuda.Event()
             event.record()
         self._inflight.append(
-            _Inflight(
-                host=host, event=event, next_input=next_tok, t0=t0,
-                rows=rows_now, chunk=chunk_rec,
-            )
+            _Inflight(host=host, event=event, t0=t0, rows=rows_now, chunk=chunk_rec)
         )
         if groups is not None:
             saved = self._groups.saved_tokens_per_step * self._kv_token_bytes
@@ -1062,6 +1298,8 @@ class ContinuousBatcher:
                 self._last_step_end = None
                 self._work.wait(timeout=0.1)
                 self._work.clear()
+                if self._progs.sends and time.monotonic() - self._progs.last_send > _MESH_IDLE_TICK_S:
+                    self._progs.call("idle")
 
 
 class ContinuousBackend(_backend_base.Backend):

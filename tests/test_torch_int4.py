@@ -475,8 +475,15 @@ def test_plan_memory_allocates_nothing():
 def test_plan_memory_raises_on_moe_and_mesh():
     with pytest.raises(NotImplementedError, match="MoE"):
         plan_memory(get_config("mixtral-8x7b"), quant="int4")
-    with pytest.raises(NotImplementedError, match="parallel slice"):
-        plan_memory(get_config("llama-1b"), mesh_shape={"data": 2})
+    # dp x mp plans are ported (tests/test_torch_parallel.py holds them
+    # against the JAX package's); the axes of later slices still raise.
+    with pytest.raises(NotImplementedError, match="pipeline slice"):
+        plan_memory(get_config("llama-1b"), mesh_shape={"data": 2, "pipe": 2})
+    with pytest.raises(NotImplementedError, match="int4"):
+        plan_memory(get_config("llama-1b"), quant="int4", mesh_shape={"model": 2})
+    kw = dict(quant="int8", n_candidates=64, mesh_shape={"data": 2})
+    assert plan_memory(get_config("llama-1b"), **kw) == j_plan_memory(
+        j_get_config("llama-1b"), **kw)
     # A mesh of one card is no mesh.
     assert plan_memory(get_config("llama-1b"), mesh_shape={"data": 1}) == plan_memory(
         get_config("llama-1b"))
@@ -516,8 +523,16 @@ def test_cli_plan_prints_jax_keys_and_exit_codes(args, capsys, monkeypatch):
     assert cli.main(["--plan", *args]) in (0, 1)
     got = json.loads(capsys.readouterr().out)
     assert got["hbm_gib"] == H100_BYTES / (1 << 30)
-    with pytest.raises(NotImplementedError, match="parallel slice"):
-        cli.main(["--plan", *args, "--plan-mesh", "data=2,model=2"])
+    mesh = ["--plan-mesh", "data=2,model=2"]
+    if "int4" in args:
+        with pytest.raises(NotImplementedError, match="int4"):
+            cli.main(["--plan", *args, *mesh])
+        return
+    outs = []
+    for main in (cli.main, j_cli.main):
+        rc = main(["--plan", *args, *mesh, "--plan-hbm-gib", "16"])
+        outs.append((rc, json.loads(capsys.readouterr().out)))
+    assert outs[0] == outs[1]
 
 
 @pytest.mark.parametrize("backend", ["local", "continuous"])

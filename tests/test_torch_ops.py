@@ -37,6 +37,7 @@ from llm_consensus_tpu_torch.ops import kernels
 from llm_consensus_tpu_torch.ops.kernels import attention as ka
 from llm_consensus_tpu_torch.ops.kernels import norms as kn
 from llm_consensus_tpu_torch.ops.kernels import quant_matmul as kq
+from llm_consensus_tpu_torch.parallel.mesh import Mesh, MeshConfig
 
 F32_TOL = dict(rtol=2e-5, atol=2e-5)
 BF16_TOL = dict(rtol=2.0**-8, atol=2.0**-8)
@@ -293,7 +294,11 @@ def test_cpu_twin_path_counts_no_launch():
         q[0, :2], pool, pool, torch.ones(2, 2, dtype=torch.int32),
         torch.tensor([3, 0], dtype=torch.int32),
         q_chunk=q[0], chunk_table=torch.tensor([2, 1], dtype=torch.int32), chunk_start=1)
-    assert len(kernels.KERNELS) == 11
+    kernels.ragged_paged_attention_sharded(
+        Mesh(MeshConfig(), "cpu"), q[0, :2], pool, pool, torch.ones(2, 2, dtype=torch.int32),
+        torch.tensor([3, 0], dtype=torch.int32),
+        q_chunk=q[0], chunk_table=torch.tensor([2, 1], dtype=torch.int32), chunk_start=1)
+    assert len(kernels.KERNELS) == 12
     assert [fn.launches for fn in kernels.KERNELS] == [0] * len(kernels.KERNELS)
 
 

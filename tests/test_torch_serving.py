@@ -50,6 +50,8 @@ from llm_consensus_tpu_torch.engine.tokenizer import ByteTokenizer
 from llm_consensus_tpu_torch.models import transformer as tt
 from llm_consensus_tpu_torch.models.configs import get_config
 from llm_consensus_tpu_torch.ops import kernels
+from llm_consensus_tpu_torch.ops.quant import quantize_params
+from llm_consensus_tpu_torch.parallel.mesh import Mesh, MeshConfig
 from llm_consensus_tpu_torch.serving import (
     ContinuousBackend,
     ContinuousBatcher,
@@ -224,6 +226,10 @@ def test_unported_settings_raise_before_device_work(tiny, knob):
     config, extra = ContinuousConfig(), {}
     if isinstance(knob, dict):
         config = ContinuousConfig(**knob)
+    elif knob == "mesh":
+        # Meshes are served now; int4 weights split over model are not.
+        tparams = quantize_params(tparams, bits=4)
+        extra = {"mesh": Mesh(MeshConfig(model=2), "cuda:0")}
     else:
         extra = {knob: object()}
     # device="cuda" would raise RuntimeError here (no card): the check
