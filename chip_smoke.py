@@ -6,7 +6,9 @@ It needs a CUDA card and ``nvcc`` (the kernels are built from
 ``llm_consensus_tpu_torch/ops/kernels/csrc`` at first use) and imports
 nothing of JAX or of the JAX package. Phases:
 
-1. Build the kernels; print the card's name and power limit.
+1. Build the kernels; print the card's name and power limit, and nvcc's
+   register, shared-memory and spill report for K1's and K2's bf16
+   instantiations.
 2. Hold each kernel (K1 RMSNorm, K2 causal prefill attention, K3 decode
    attention, K7 shared-prefix decode attention; K4 int8-cache decode
    attention and K5, K4 on a layer of the stacked cache; K6 the W8A16
@@ -19,7 +21,10 @@ nothing of JAX or of the JAX package. Phases:
    (``k6_cases``), also in both types; K10 (the W4A16 matmul) at the same
    llama-1b shapes and M and at llama3-8b's projections at M = 64 (random
    packed bytes), both types, each case also held against K6 on the same
-   integer weights unpacked to int8. K7 is
+   integer weights unpacked to int8. K1 also at 3 x 37 rows and at
+   llama3-8b's width over a 2048-token prompt, both types; K2 in bf16 also
+   at a ragged bucket (200), at llama3-8b's heads (G = 4) over a
+   2048-token prompt, and at head_dim 64 with G = 3. K7 is
    also held against K3, and K7-q8 against K4, on the same cache. Print
    the max abs error and the worst ratio of error to tolerance, the
    kernel's time, the twin's time, one PyTorch call computing the same
@@ -234,6 +239,9 @@ def k6_cases(cfg):
 # where int4 weights are what make a model fit (random packed bytes made
 # on the card, no model).
 K10_BIG_MODEL, K10_BIG_M = "llama3-8b", 64
+# K1 and K2 beyond llama-1b: llama3-8b's width and heads (32 / 8 / 128),
+# and the draft model's head_dim 64 with G = 3 (12 / 4 / 64).
+K2_BIG_MODEL, K2_D64_MODEL = "llama3-8b", "llama-draft-100m"
 # The case each kernel reports in the kernels JSON line.
 REPORTED = {"dtype": "torch.bfloat16", "b": 8, "s": 256}
 REPORTED_K6 = {"dtype": "torch.bfloat16", "b": 64, "s": None, "kn": (2048, 5632)}
@@ -281,20 +289,21 @@ def kernel_cases(torch, cfg, timer):
         r.update(vs=name, vs_err=err, vs_ratio=ratio, vs_ms=timer.ms(fn))
         return r
 
-    def k1(dtype, b, s):  # x [B, S, d_model]
+    def k1(dtype, b, s, d=d_model):  # x [B, S, d]
         es = torch.finfo(dtype).bits // 8
-        x = randn(b, s, d_model, dtype=dtype)
-        w = (1.0 + 0.1 * randn(d_model, dtype=torch.float32)).to(dtype)
+        x = randn(b, s, d, dtype=dtype)
+        w = (1.0 + 0.1 * randn(d, dtype=torch.float32)).to(dtype)
         return row(
-            "fused_rms_norm", dtype, b, s, f"x[{b},{s},{d_model}]",
+            "fused_rms_norm", dtype, b, s, f"x[{b},{s},{d}]",
             kn.fused_rms_norm(x, w, eps), kn.fused_rms_norm_plain(x, w, eps),
             lambda: kn.fused_rms_norm(x, w, eps),
             lambda: kn.fused_rms_norm_plain(x, w, eps),
-            lambda: F.rms_norm(x, (d_model,), w, eps),
-            (2 * x.numel() + d_model) * es, 4 * x.numel(),
+            lambda: F.rms_norm(x, (d,), w, eps),
+            (2 * x.numel() + d) * es, 4 * x.numel(),
         )
 
-    def k2(dtype, b, s):  # prefill of B prompts in bucket S
+    def k2(dtype, b, s, heads=None):  # prefill of B prompts in bucket S
+        h, hkv, dh = heads or (cfg.n_heads, cfg.n_kv_heads, cfg.head_dim)
         es = torch.finfo(dtype).bits // 8
         q = randn(b, s, h, dh, dtype=dtype)
         k = randn(b, s, hkv, dh, dtype=dtype)
@@ -504,6 +513,15 @@ def kernel_cases(torch, cfg, timer):
             rows += [k6(dtype, m, k, n, out), k10(dtype, m, k, n, out)]
         for k, n, out in projection_shapes(get_config(K10_BIG_MODEL)):
             rows.append(k10(dtype, K10_BIG_M, k, n, out, model=K10_BIG_MODEL))
+        # K1 beyond llama-1b's grid: a row count that no block size divides
+        # (3 x 37) and llama3-8b's d_model over one 2048-token prompt.
+        rows += [k1(dtype, 3, 37), k1(dtype, 1, 2048, d=get_config(K2_BIG_MODEL).d_model)]
+    # K2's bf16 tensor-core kernel beyond the grid: a ragged bucket (200) at
+    # llama-1b's heads, llama3-8b's heads (G = 4) over one 2048-token prompt,
+    # and head_dim 64 with G = 3 (the draft model's heads) at a ragged S.
+    for c, b, s in ((cfg, 2, 200), (get_config(K2_BIG_MODEL), 1, 2048),
+                    (get_config(K2_D64_MODEL), 2, 300)):
+        rows.append(k2(torch.bfloat16, b, s, heads=(c.n_heads, c.n_kv_heads, c.head_dim)))
     for r in rows:
         ok = r["ratio"] <= 1.0 and math.isfinite(r["err"])
         extra = ""
@@ -1756,6 +1774,33 @@ def mesh_phase(torch, cfg, card: str) -> dict:
 # ---------------------------------------------------------------------------
 
 
+def ptxas_lines(build, kernels) -> list[str]:
+    """nvcc's ``-Xptxas -v`` report (registers, spills) for each entry
+    function whose name holds one of ``kernels``, from the build's log: one
+    line per instantiation, its name demangled as far as ``c++filt`` goes."""
+    log = build.library_path().with_suffix(".log")
+    if not log.exists():
+        return [f"no build log at {log}"]
+    out, name, props = [], None, ""
+    for line in log.read_text().splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1] if any(k in line for k in kernels) else None
+            props = ""
+        elif name and "spill" in line:
+            props = line.strip()
+        elif name and "Used" in line:
+            try:
+                name = subprocess.run(["c++filt", name], capture_output=True,
+                                      text=True, check=True).stdout.strip()
+                name = name.replace("(anonymous namespace)::", "").split("(")[0]
+                name = name.removeprefix("void ")
+            except (OSError, subprocess.CalledProcessError):
+                pass
+            out.append(f"{name}: {line.split(':', 1)[1].strip()}; {props}")
+            name = None
+    return out
+
+
 def launch_counts(kernels) -> dict:
     return {fn.__name__: fn.launches for fn in kernels.KERNELS}
 
@@ -1783,6 +1828,8 @@ def main() -> int:
     build.load_library()
     print(f"  kernels built and loaded in {time.perf_counter() - t0:.1f} s "
           f"({build.library_path().name})")
+    for line in ptxas_lines(build, ("rms_norm_kernel", "causal_attention_tc_kernel")):
+        print(f"  ptxas {line}")
 
     cfg = get_config("llama-1b")
     print("phase 2: kernels against their twins")

@@ -37,6 +37,9 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (16, 32, 64, 128)
 _DECODE_GROUPS = (1, 2, 4, 8)
 _MAX_THREADS = 512  # csrc/causal_attention.cu: kMaxThreads
+# csrc/causal_attention.cu's bf16 kernel: keys per tile, tiles in shared memory.
+_TC_KEYS = 64
+_TC_STAGES = 2
 _PREFIX_SPLIT = 64  # csrc/decode_attention.cu: kSplit
 
 
@@ -61,13 +64,29 @@ def flash_causal_attention_plain(
 
 
 def causal_block_q(h: int, hkv: int, d: int) -> int:
-    """Query positions per block: 64, or fewer when the block's
-    ``bq * G * (D / 32)`` threads would pass the kernel's limit."""
+    """Query positions per block of the float32 kernel: 64, or fewer when
+    the block's ``bq * G * (D / 32)`` threads would pass its limit."""
     per_pos = (h // hkv) * max(1, d // 32)
     bq = 64
     while bq > 1 and bq * per_pos > _MAX_THREADS:
         bq //= 2
     return bq
+
+
+def causal_tile_bf16(h: int, hkv: int, d: int) -> tuple[int, int]:
+    """(rows per block, dynamic shared-memory bytes) of the bf16 kernel.
+
+    A block's rows are (query position, head of the group) pairs, 16 per
+    warp, whatever G = H / Hkv is: 64 rows (4 warps) at every D, which
+    timed faster than 128 rows (8 warps) on the H100 at all but one of
+    the shapes tried (PERF.md §6). The shared memory holds two stages
+    of a 64-key K and V tile in bf16, each key row padded by 16 bytes.
+    """
+    if d not in _HEAD_DIMS:
+        raise ValueError(f"flash_causal_attention takes head_dim in {_HEAD_DIMS}, got {d}")
+    if hkv <= 0 or h % hkv:
+        raise ValueError(f"flash_causal_attention needs H a multiple of Hkv, got {h}, {hkv}")
+    return 64, _TC_STAGES * 2 * _TC_KEYS * (d + 8) * 2
 
 
 def flash_causal_attention(
@@ -76,8 +95,9 @@ def flash_causal_attention(
     """Causal attention, index-causal positions (the prefill hot path).
 
     q: [B, S, H, D]; k/v: [B, S, Hkv, D]. Any S (the kernel masks the
-    ragged last query tile). Returns [B, S, H, D] in q's dtype. CPU
-    tensors take the plain twin; CUDA tensors launch the kernel.
+    ragged last query and key tiles). Returns [B, S, H, D] in q's dtype.
+    CPU tensors take the plain twin; CUDA tensors launch the kernel for
+    their type: bf16 the tensor-core kernel, float32 the CUDA-core one.
     """
     if not q.is_cuda:
         return flash_causal_attention_plain(q, k, v)
@@ -86,15 +106,20 @@ def flash_causal_attention(
     hkv = k.shape[2]
     if k.shape != (b, s, hkv, d) or v.shape != k.shape or h % hkv:
         raise ValueError(f"bad shapes q {q.shape} k {k.shape} v {v.shape}")
-    bq = causal_block_q(h, hkv, d)
-    threads = bq * (h // hkv) * max(1, d // 32)
-    if threads > _MAX_THREADS or threads % 32:
-        raise ValueError(f"flash_causal_attention: no block shape for H={h} Hkv={hkv} D={d}")
+    if q.dtype == torch.bfloat16:
+        tile = causal_tile_bf16(h, hkv, d)[0]
+        if any(t.data_ptr() % 16 for t in (q, k, v)):
+            raise ValueError("flash_causal_attention needs bf16 q, k, v 16-byte aligned")
+    else:
+        tile = causal_block_q(h, hkv, d)
+        threads = tile * (h // hkv) * max(1, d // 32)
+        if threads > _MAX_THREADS or threads % 32:
+            raise ValueError(f"flash_causal_attention: no block shape for H={h} Hkv={hkv} D={d}")
     lib = build.load_library()
     out = torch.empty_like(q)
     rc = lib.lct_causal_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        b, s, h, hkv, d, bq, float(d ** -0.5), _DTYPES[q.dtype],
+        b, s, h, hkv, d, tile, float(d ** -0.5), _DTYPES[q.dtype],
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     build.check(rc, "causal_attention")

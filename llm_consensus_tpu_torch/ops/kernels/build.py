@@ -35,7 +35,7 @@ _F = ctypes.c_float
 # C entry points and their argument types (pointers and the stream are
 # c_void_p: an untyped int would be cut to 32 bits).
 _SIGNATURES = {
-    "lct_rms_norm": (_P, _P, _P, _I, _I, _F, _I, _P),
+    "lct_rms_norm": (_P, _P, _P, _I, _I, _F, _I, _I, _I, _I, _P),
     "lct_causal_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _P),
     "lct_decode_attention": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P),
     "lct_shared_prefix_attention": (

@@ -45,3 +45,53 @@ __device__ __forceinline__ float lct_group_sum(float v) {
   }
   return v;
 }
+
+// ---------------------------------------------------------------------------
+// Tensor-core and copy helpers (K2's bf16 form, K6 and K10).
+// ---------------------------------------------------------------------------
+
+// c += a * b on the tensor cores: one mma.sync m16n8k16, bf16 A (16 x 16,
+// row-major fragment) and B (16 x 8, column-major fragment), float32
+// accumulators. Lane l holds rows l / 4 and l / 4 + 8 of c, columns
+// 2 * (l % 4) and 2 * (l % 4) + 1.
+__device__ __forceinline__ void lct_mma_bf16(float* c, const uint32_t* a,
+                                             uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Four 8 x 8 bf16 matrices from shared memory: lanes 8i..8i+7 give the
+// addresses of matrix i's 8 rows (16 bytes each), r[i] gets lane l's two
+// elements of it: row l / 4, columns 2 * (l % 4) and + 1; with .trans,
+// column l / 4, rows 2 * (l % 4) and + 1.
+__device__ __forceinline__ void lct_ldmatrix_x4(uint32_t (&r)[4], const void* row) {
+  const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(row));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+__device__ __forceinline__ void lct_ldmatrix_x4_trans(uint32_t (&r)[4], const void* row) {
+  const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(row));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+// 16 bytes from device to shared memory without passing through registers;
+// with valid false nothing is read and the 16 bytes are zeroed.
+__device__ __forceinline__ void lct_cp_async16(void* dst, const void* src, bool valid) {
+  const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(addr), "l"(src), "r"(valid ? 16 : 0) : "memory");
+}
+__device__ __forceinline__ void lct_cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// Wait until at most n of this thread's committed groups are in flight.
+template <int n>
+__device__ __forceinline__ void lct_cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(n) : "memory");
+}

@@ -309,15 +309,6 @@ __device__ __forceinline__ uint32_t pack_bf16(int lo, int hi) {
   return *reinterpret_cast<const uint32_t*>(&h);
 }
 
-__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
 // The tensor-core forms' epilogue: the 4 warps' sums added in a fixed
 // order through shared memory (`smem`, at least 4 * BM * kTcBN floats);
 // then scale, cast, store, or (ws != nullptr) the float32 partial to
@@ -444,7 +435,7 @@ __global__ void __launch_bounds__(kTcThreads)
         const uint32_t b0 = pack_bf16(wc[0], wc[kWRow]);
         const uint32_t b1 = pack_bf16(wc[8 * kWRow], wc[9 * kWRow]);
 #pragma unroll
-        for (int mi = 0; mi < MI; ++mi) mma_bf16(acc[mi][nt], a[mi], b0, b1);
+        for (int mi = 0; mi < MI; ++mi) lct_mma_bf16(acc[mi][nt], a[mi], b0, b1);
       }
     }
   }
@@ -541,8 +532,8 @@ __global__ void __launch_bounds__(kTcThreads)
       const uint32_t hi1 = pack_bf16(hi_nibble(b8), hi_nibble(b9));
 #pragma unroll
       for (int mi = 0; mi < MI; ++mi) {
-        mma_bf16(acc[mi][nt], alo[mi], lo0, lo1);
-        mma_bf16(acc[mi][nt], ahi[mi], hi0, hi1);
+        lct_mma_bf16(acc[mi][nt], alo[mi], lo0, lo1);
+        lct_mma_bf16(acc[mi][nt], ahi[mi], hi0, hi1);
       }
     }
   }

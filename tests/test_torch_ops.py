@@ -31,7 +31,7 @@ from llm_consensus_tpu.ops.pallas import (
     flash_decode_attention_shared_prefix as j_flash_shared_prefix,
     fused_rms_norm as j_fused_rms,
 )
-from llm_consensus_tpu_torch.models.configs import RopeScaling
+from llm_consensus_tpu_torch.models.configs import PRESETS, RopeScaling
 from llm_consensus_tpu_torch.ops import activations, attention, norms, rope
 from llm_consensus_tpu_torch.ops import kernels
 from llm_consensus_tpu_torch.ops.kernels import attention as ka
@@ -124,6 +124,115 @@ def test_causal_bf16_within_one_rounding_of_fp32_oracle():
     assert got.dtype == torch.bfloat16
     oracle = ka.flash_causal_attention(q.float(), k.float(), v.float())
     np.testing.assert_allclose(got.float().numpy(), oracle.numpy(), **BF16_TOL)
+
+
+def _bf16_tolerance(ref):
+    """chip_smoke.tolerance for bf16: one bf16 ulp of each element plus 1e-5."""
+    return 2.0**-7 * ref.float().abs() + 1e-5
+
+
+def _emulate_tc_causal(q, k, v, split_p=True):
+    """The arithmetic of K2's bf16 tensor-core kernel, in torch on the CPU.
+
+    bf16 q/k/v; float32 scores with exact products, scaled by
+    scale * log2(e) in float32; an online softmax over 64-key tiles with
+    exp2; P through P * V as hi = bf16(P) plus lo = bf16(P - hi) into
+    float32 sums (or, with ``split_p`` False, P rounded to bf16 alone, the
+    usual FlashAttention-2 recipe); one rounding of the output to bf16.
+    """
+    b, s, h, d = q.shape
+    hkv = k.shape[2]
+    qg = q.float().reshape(b, s, hkv, h // hkv, d)
+    scores = torch.einsum("bqkgd,bskd->bkgqs", qg, k.float())
+    scores = scores * torch.tensor(d**-0.5 * 1.4426950408889634, dtype=torch.float32)
+    pos = torch.arange(s)
+    scores = scores.masked_fill(pos[None, :] > pos[:, None], float("-inf"))
+    vf = v.float().permute(0, 2, 1, 3)[:, :, None]  # [B, Hkv, 1, S, D]
+    m = torch.full(scores.shape[:-1] + (1,), float("-inf"))
+    l = torch.zeros_like(m)
+    o = torch.zeros(scores.shape[:-1] + (d,))
+    for k0 in range(0, s, 64):
+        st = scores[..., k0:k0 + 64]
+        m_new = torch.maximum(m, st.amax(-1, keepdim=True))
+        alpha = torch.exp2(m - m_new)
+        p = torch.exp2(st - m_new)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        hi = p.to(torch.bfloat16).float()
+        vt = vf[..., k0:k0 + 64, :]
+        o = o * alpha + hi @ vt
+        if split_p:
+            o = o + (p - hi).to(torch.bfloat16).float() @ vt
+        m = m_new
+    out = (o / l).permute(0, 3, 1, 2, 4).reshape(b, s, h, d)
+    return out.to(torch.bfloat16)
+
+
+def _tc_err_over_tol(b, s, h, hkv, d, split_p, seed=11):
+    rng = np.random.default_rng(seed)
+    q, k, v = (_t(a, torch.bfloat16) for a in _qkv(rng, b, s, h, hkv, d))
+    oracle = j_attn.causal_attention(*(jnp.asarray(_np(t.float())) for t in (q, k, v)))
+    ref = torch.from_numpy(_np(oracle).copy()).to(torch.bfloat16)
+    got = _emulate_tc_causal(q, k, v, split_p=split_p)
+    return float(((got.float() - ref.float()).abs() / _bf16_tolerance(ref)).max())
+
+
+# llama-1b's heads (16 / 8 / 128) at the reported bucket and a ragged one,
+# and G = 4.
+@pytest.mark.parametrize("b,s,h,hkv,d", [
+    (2, 256, 16, 8, 128), (2, 200, 16, 8, 128), (2, 256, 8, 2, 128)])
+def test_tc_causal_scheme_with_p_split_within_bf16_tolerance(b, s, h, hkv, d):
+    assert _tc_err_over_tol(b, s, h, hkv, d, split_p=True) <= 1.0
+
+
+def test_tc_causal_scheme_with_bf16_p_misses_bf16_tolerance():
+    # Why K2's bf16 kernel splits P into hi + lo: rounded to bf16 alone,
+    # P's error in P * V is many bf16 ulps of the output.
+    assert _tc_err_over_tol(2, 256, 16, 8, 128, split_p=False) > 10.0
+
+
+_TILE_PRESETS = sorted(n for n, c in PRESETS.items() if c.head_dim in ka._HEAD_DIMS)
+
+
+@pytest.mark.parametrize("name", _TILE_PRESETS)
+def test_k2_tiles_fit_every_preset(name):
+    c = PRESETS[name]
+    rows, smem = ka.causal_tile_bf16(c.n_heads, c.n_kv_heads, c.head_dim)
+    assert rows == 64 and smem <= 227 * 1024
+    bq = ka.causal_block_q(c.n_heads, c.n_kv_heads, c.head_dim)
+    threads = bq * (c.n_heads // c.n_kv_heads) * max(1, c.head_dim // 32)
+    assert threads <= 512 and threads % 32 == 0
+
+
+def test_k2_tile_refuses_head_dims_it_does_not_take():
+    assert any(c.head_dim not in ka._HEAD_DIMS for c in PRESETS.values())  # arith-3m: 48
+    for d in (48, 96, 256):
+        with pytest.raises(ValueError, match="head_dim"):
+            ka.causal_tile_bf16(4, 4, d)
+    with pytest.raises(ValueError, match="multiple of Hkv"):
+        ka.causal_tile_bf16(6, 4, 64)
+
+
+@pytest.mark.parametrize("name", sorted(PRESETS))
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_k1_launch_shape_every_preset(name, dtype):
+    d, sms = PRESETS[name].d_model, 132
+    vec = kn._VEC[dtype]
+    for rows in (1, 64, 3 * 37, 2048, 8192, 200_000):
+        nv, warps, blocks = kn.rms_norm_launch(rows, d, dtype, sms)
+        assert nv in kn._LANE_VECTORS and 32 * nv * vec >= d > 32 * (nv // 2) * vec
+        assert 1 <= warps <= 8 and blocks >= 1
+        # Every row has a warp, or every SM its share of warps (grid-stride).
+        assert blocks * warps >= min(rows, sms * 32 // warps * warps)
+        # Small row counts spread one block per SM as far as they go.
+        assert blocks >= min(rows, sms)
+
+
+@pytest.mark.parametrize("d,dtype", [
+    (36, torch.bfloat16), (4100, torch.bfloat16), (6, torch.float32), (0, torch.float32),
+    (8200, torch.bfloat16), (4100, torch.float32)])
+def test_k1_launch_refuses_widths_it_does_not_take(d, dtype):
+    with pytest.raises(ValueError, match=f"d={d}"):
+        kn.rms_norm_launch(64, d, dtype, 132)
 
 
 # ---------------------------------------------------------------------------
