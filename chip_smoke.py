@@ -8,7 +8,7 @@ nothing of JAX or of the JAX package. Phases:
 
 1. Build the kernels; print the card's name and power limit, and nvcc's
    register, shared-memory and spill report for K1's and K2's bf16
-   instantiations.
+   instantiations and for K4's split-KV pass and K10's wgmma kernel.
 2. Hold each kernel (K1 RMSNorm, K2 causal prefill attention, K3 decode
    attention, K7 shared-prefix decode attention; K4 int8-cache decode
    attention and K5, K4 on a layer of the stacked cache; K6 the W8A16
@@ -24,8 +24,14 @@ nothing of JAX or of the JAX package. Phases:
    integer weights unpacked to int8. K1 also at 3 x 37 rows and at
    llama3-8b's width over a 2048-token prompt, both types; K2 in bf16 also
    at a ragged bucket (200), at llama3-8b's heads (G = 4) over a
-   2048-token prompt, and at head_dim 64 with G = 3. K7 is
-   also held against K3, and K7-q8 against K4, on the same cache. Print
+   2048-token prompt, and at head_dim 64 with G = 3. K4 (and K5) also at
+   valid_len 1 and S_max, at S_max = 300 (not a whole number of its
+   32-slot chunks), one row over 2176 slots, and every head_dim in {16,
+   32, 64, 128} x group size in {1, 2, 4, 8}; K10 also at N = 384 and
+   1152 (multiples of 128, not of 256) for M in {1, 16, 80, 256}
+   and at every llama-1b projection at M = 256, both types. K4 and K10
+   are launched twice on the same inputs and must give the same bits. K7
+   is also held against K3, and K7-q8 against K4, on the same cache. Print
    the max abs error and the worst ratio of error to tolerance, the
    kernel's time, the twin's time, one PyTorch call computing the same
    function (``library_ms``: F.rms_norm, scaled_dot_product_attention on
@@ -257,6 +263,7 @@ def kernel_cases(torch, cfg, timer):
     from llm_consensus_tpu_torch.ops.kernels import norms as kn
     from llm_consensus_tpu_torch.ops.kernels import quant_matmul as kq
     from llm_consensus_tpu_torch.models.configs import get_config
+    from llm_consensus_tpu_torch.ops.kernels.quant_matmul import quant4_matmul_supported
     from llm_consensus_tpu_torch.ops.quant import (
         Quantized4Tensor,
         dequantize,
@@ -368,32 +375,41 @@ def kernel_cases(torch, cfg, timer):
         return held_against(r, "k3", dtype, got, ka.flash_decode_attention(qd, kc, vc, vl),
                             lambda: ka.flash_decode_attention(qd, kc, vc, vl))
 
-    def q8_cache(b, s_max, plen=0, layers=1):
+    def q8_cache(b, s_max, plen=0, layers=1, heads=None):
         """An int8 head-major cache [L, B, Hkv, S_max, D] (scales [L, B,
         Hkv, S_max]) made by quantize_kv, rows sharing slots [0, plen);
-        and the same cache dequantized to float32 (the library's input)."""
+        and the same cache dequantized to float32 (the library's input).
+        ``heads``: (Hkv, D), llama-1b's by default."""
+        n_kv, d = heads or (hkv, dh)
         out = []
         for _ in range(2):  # K, then V
-            x = randn(layers, b, hkv, s_max, dh, dtype=torch.float32)
+            x = randn(layers, b, n_kv, s_max, d, dtype=torch.float32)
             x[:, :, :, :plen] = x[:, :1, :, :plen].clone()
             xq, xs = quantize_kv(x)
             out += [xq, xs]
         deq = [(out[i].float() * out[i + 1][..., None]) for i in (0, 2)]
         return out, deq
 
-    def q8_bytes(n_slots, qd, es, b):
+    def q8_bytes(n_slots, qd, es, b, n_kv=hkv, d=dh):
         """Bytes a decode over the int8 cache must move: each read slot's
         int8 K and V rows and their two float32 scales, q, out, valid_len."""
-        return n_slots * hkv * (2 * dh + 8) + 2 * qd.numel() * es + 4 * b
+        return n_slots * n_kv * (2 * d + 8) + 2 * qd.numel() * es + 4 * b
 
-    def k4(dtype, b, s, lo=1, stacked=False):  # int8 decode, cache prompt + 128
+    def k4(dtype, b, s, lo=1, stacked=False, s_max=None, valid=None, heads=None):
+        """int8 decode over a cache of prompt + 128 slots, valid_len drawn
+        from [lo, S_max]; or (edge cases, s None) over ``s_max`` slots with
+        the given ``valid`` lengths and (H, Hkv, D) ``heads``."""
+        h, hkv, dh = heads or (cfg.n_heads, cfg.n_kv_heads, cfg.head_dim)
         es = torch.finfo(dtype).bits // 8
-        s_max = s + 128
+        s_max = s_max or s + 128
         layer = 1 if stacked else 0
         qd = randn(b, 1, h, dh, dtype=dtype)
-        (kq_, ks, vq_, vs), (kd, vd) = q8_cache(b, s_max, layers=layer + 1)
-        vl = torch.randint(lo, s_max + 1, (b,), generator=gen, device="cuda",
-                           dtype=torch.int32)
+        (kq_, ks, vq_, vs), (kd, vd) = q8_cache(b, s_max, layers=layer + 1, heads=(hkv, dh))
+        if valid is None:
+            vl = torch.randint(lo, s_max + 1, (b,), generator=gen, device="cuda",
+                               dtype=torch.int32)
+        else:
+            vl = torch.tensor(valid, device="cuda", dtype=torch.int32)
         mask = (torch.arange(s_max, device="cuda")[None, :] < vl[:, None])[:, None, None, :]
         qdt, kdl, vdl = qd.transpose(1, 2), kd[layer].to(dtype), vd[layer].to(dtype)
         views = (kq_[layer], ks[layer], vq_[layer], vs[layer])
@@ -404,14 +420,18 @@ def kernel_cases(torch, cfg, timer):
             name = "flash_decode_attention_q8"
             fn = lambda: ka.flash_decode_attention_q8(qd, *views, vl)  # noqa: E731
         n_valid = int(vl.sum())
-        return row(
+        got = fn()
+        r = row(
             name, dtype, b, s, f"q[{b},1,{h},{dh}] cache_q8[{b},{hkv},{s_max},{dh}]"
-            + (f" layer {layer} of 2" if stacked else ""),
-            fn(), ka.flash_decode_attention_q8_plain(qd, *views, vl), fn,
+            + (f" layer {layer} of 2" if stacked else "")
+            + (f" valid_len {valid}" if valid is not None else ""),
+            got, ka.flash_decode_attention_q8_plain(qd, *views, vl), fn,
             lambda: ka.flash_decode_attention_q8_plain(qd, *views, vl),
             lambda: F.scaled_dot_product_attention(qdt, kdl, vdl, attn_mask=mask, enable_gqa=True),
-            q8_bytes(n_valid, qd, es, b), 4 * n_valid * h * dh,
+            q8_bytes(n_valid, qd, es, b, hkv, dh), 4 * n_valid * h * dh,
         )
+        r["bitwise"] = bool(torch.equal(got, fn()))  # a second launch, the same bits
+        return r
 
     def k7q8(dtype, b, s, stacked=False):  # the int8 fan-out's decode
         es = torch.finfo(dtype).bits // 8
@@ -490,7 +510,7 @@ def kernel_cases(torch, cfg, timer):
             k * n // 2 + 4 * n + m * k * es + m * n * out_es, 2 * m * k * n,
             out_dtype=out_dtype,
         )
-        r.update(kn=(k, n), model=model)
+        r.update(kn=(k, n), model=model, bitwise=bool(torch.equal(got, fn())))
         return held_against(r, "k6", out_dtype or dtype, got, k6(), k6)
 
     rows = []
@@ -516,6 +536,22 @@ def kernel_cases(torch, cfg, timer):
         # K1 beyond llama-1b's grid: a row count that no block size divides
         # (3 x 37) and llama3-8b's d_model over one 2048-token prompt.
         rows += [k1(dtype, 3, 37), k1(dtype, 1, 2048, d=get_config(K2_BIG_MODEL).d_model)]
+    # K4 (K5) at its edges, both types: valid_len 1 and S_max, S_max not a
+    # whole number of 32-slot chunks, one row over the panel's 2176 slots
+    # (the most splits), every head_dim x group size at one size; K10 at N
+    # = 384 and 1152 (multiples of 128, not of 256) and at M = 256.
+    for dtype in (torch.bfloat16, torch.float32):
+        rows += [k4(dtype, 3, None, s_max=300, valid=[1, 300, 137]),
+                 k4(dtype, 3, None, s_max=300, valid=[300, 1, 33], stacked=True),
+                 k4(dtype, 1, None, s_max=2176, valid=[2176])]
+        for d in (16, 32, 64, 128):
+            for g in (1, 2, 4, 8):
+                rows.append(k4(dtype, 2, None, s_max=200, valid=[200, 77], heads=(4 * g, 4, d)))
+        for m in (1, 16, 80, 256):
+            for n in (384, 1152):
+                rows.append(k10(dtype, m, cfg.d_model, n))
+        rows += [k10(dtype, 256, k, n, out) for k, n, out in projection_shapes(cfg)
+                 if quant4_matmul_supported(256, k, n)]
     # K2's bf16 tensor-core kernel beyond the grid: a ragged bucket (200) at
     # llama-1b's heads, llama3-8b's heads (G = 4) over one 2048-token prompt,
     # and head_dim 64 with G = 3 (the draft model's heads) at a ragged S.
@@ -523,11 +559,11 @@ def kernel_cases(torch, cfg, timer):
                     (get_config(K2_D64_MODEL), 2, 300)):
         rows.append(k2(torch.bfloat16, b, s, heads=(c.n_heads, c.n_kv_heads, c.head_dim)))
     for r in rows:
-        ok = r["ratio"] <= 1.0 and math.isfinite(r["err"])
-        extra = ""
+        ok = r["ratio"] <= 1.0 and math.isfinite(r["err"]) and r.get("bitwise", True)
+        extra = "" if "bitwise" not in r else f" repeat_bitwise={r['bitwise']}"
         if "vs_ms" in r:
             ok = ok and r["vs_ratio"] <= 1.0
-            extra = f" vs_{r['vs']}_err={r['vs_err']:.3e} {r['vs']}_ms={r['vs_ms']:.4f}"
+            extra += f" vs_{r['vs']}_err={r['vs_err']:.3e} {r['vs']}_ms={r['vs_ms']:.4f}"
         print(
             f"  {r['kernel']:48s} {r['dtype']:15s} {r['shape']:62s} "
             f"max_abs_err={r['err']:.3e} err/tol={r['ratio']:.3f} ms={r['ms']:.4f} "
@@ -1828,7 +1864,9 @@ def main() -> int:
     build.load_library()
     print(f"  kernels built and loaded in {time.perf_counter() - t0:.1f} s "
           f"({build.library_path().name})")
-    for line in ptxas_lines(build, ("rms_norm_kernel", "causal_attention_tc_kernel")):
+    for line in ptxas_lines(build, ("rms_norm_kernel", "causal_attention_tc_kernel",
+                                    "decode_q8_split_kernel", "decode_q8_merge_kernel",
+                                    "quant4_wgmma_kernel")):
         print(f"  ptxas {line}")
 
     cfg = get_config("llama-1b")
@@ -1914,10 +1952,10 @@ def main() -> int:
         "flash_decode_attention": (d + "decode_attention.cu", p + "attention.py:391", ("bf16",)),
         "flash_decode_attention_shared_prefix": (
             d + "decode_attention.cu", p + "attention.py:1494", ("bf16",)),
-        "flash_decode_attention_q8": (d + "decode_attention.cu", p + "attention.py:280",
+        "flash_decode_attention_q8": (d + "decode_attention_q8.cu", p + "attention.py:280",
                                       ("int8", "int4")),
         "flash_decode_attention_q8_stacked": (
-            d + "decode_attention.cu", p + "attention.py:444", ("int8_stacked_check",)),
+            d + "decode_attention_q8.cu", p + "attention.py:444", ("int8_stacked_check",)),
         "quant_matmul_2d": (d + "quant_matmul.cu", p + "quant_matmul.py:59",
                             ("int8", "serve_int8")),
         "flash_decode_attention_shared_prefix_q8": (
@@ -1927,7 +1965,7 @@ def main() -> int:
         "ragged_paged_attention": (
             d + "ragged_paged_attention.cu", p + "attention.py:1213",
             ("serve", "serve_int8", "serve_int4")),
-        "quant4_matmul_2d": (d + "quant_matmul.cu", p + "quant_matmul.py:161",
+        "quant4_matmul_2d": (d + "quant4_matmul.cu", p + "quant_matmul.py:161",
                              ("int4", "serve_int4")),
     }
     summary = []

@@ -13,7 +13,7 @@ launches and nothing else.
   (``csrc/decode_attention.cu``)
 - K4 :func:`~.attention.flash_decode_attention_q8` and K5
   :func:`~.attention.flash_decode_attention_q8_stacked`, K4 on a layer's
-  views (``csrc/decode_attention.cu``)
+  views (``csrc/decode_attention_q8.cu``)
 - K6 :func:`~.quant_matmul.quant_matmul_2d` (``csrc/quant_matmul.cu``;
   ``quant_matmul_stacked`` is the same kernel on a layer's views)
 - K7-q8 :func:`~.attention.flash_decode_attention_shared_prefix_q8` and
@@ -23,7 +23,8 @@ launches and nothing else.
   wrappers ``paged_decode_attention`` and
   ``paged_decode_attention_grouped`` (``csrc/ragged_paged_attention.cu``)
 - K10 :func:`~.quant_matmul.quant4_matmul_2d`, the packed-int4 matmul
-  (``csrc/quant_matmul.cu``)
+  (``csrc/quant4_matmul.cu`` for bf16 x, ``csrc/quant_matmul.cu`` for
+  float32 x)
 """
 
 from llm_consensus_tpu_torch.ops.kernels.attention import (

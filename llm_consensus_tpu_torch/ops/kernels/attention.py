@@ -41,6 +41,9 @@ _MAX_THREADS = 512  # csrc/causal_attention.cu: kMaxThreads
 _TC_KEYS = 64
 _TC_STAGES = 2
 _PREFIX_SPLIT = 64  # csrc/decode_attention.cu: kSplit
+_Q8_CHUNK = 32  # csrc/decode_attention_q8.cu: kChunk, slots a stage
+_Q8_MIN_SPAN = 128  # the floor on slots a split: a chunk for each of 4 warps
+_SMS = 132  # the H100's SMs
 
 
 def _check(name: str, q: torch.Tensor, *tensors: torch.Tensor) -> None:
@@ -87,6 +90,28 @@ def causal_tile_bf16(h: int, hkv: int, d: int) -> tuple[int, int]:
     if hkv <= 0 or h % hkv:
         raise ValueError(f"flash_causal_attention needs H a multiple of Hkv, got {h}, {hkv}")
     return 64, _TC_STAGES * 2 * _TC_KEYS * (d + 8) * 2
+
+
+def decode_q8_splits(b: int, hkv: int, s_max: int) -> tuple[int, int]:
+    """(n_split, span) of K4's split-KV grid (Hkv, B, n_split): block z of a
+    (row, kv head) reads slots [z * span, (z + 1) * span).
+
+    From the host-known shapes only: valid_len lives on the card and is
+    never read here. The span is a whole number of 32-slot chunks, at least
+    four (one for each of the block's warps), and short enough that the
+    grid holds two blocks for each of the H100's 132 SMs where the cache is
+    long enough; ``n_split * span >= s_max > (n_split - 1) * span``.
+    """
+    s_max = max(int(s_max), 1)
+    target = -(-2 * _SMS // max(1, b * hkv))
+    span = max(_Q8_MIN_SPAN, (s_max // target) // _Q8_CHUNK * _Q8_CHUNK)
+    return -(-s_max // span), span
+
+
+def decode_q8_workspace(b: int, h: int, d: int, n_split: int) -> int:
+    """Float32 elements of K4's workspace: each split's max and sum and
+    unnormalised output for every (row, query head); none for one split."""
+    return n_split * b * h * (d + 2) if n_split > 1 else 0
 
 
 def flash_causal_attention(
@@ -358,10 +383,16 @@ def _launch_q8(name, q, k_q, k_scale, v_q, v_scale, valid_len, prefix_len=None):
     out = torch.empty_like(q)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     if prefix_len is None:
+        if k_q.data_ptr() % 16 or v_q.data_ptr() % 16:
+            raise ValueError(f"{name} needs k_q and v_q 16-byte aligned")
+        n_split, span = decode_q8_splits(b, hkv, s_max)
+        n_ws = decode_q8_workspace(b, h, d, n_split)
+        ws = torch.empty(n_ws, dtype=torch.float32, device=q.device) if n_ws else None
         rc = lib.lct_decode_attention_q8(
             q.data_ptr(), k_q.data_ptr(), k_scale.data_ptr(), v_q.data_ptr(),
             v_scale.data_ptr(), valid_len.data_ptr(), out.data_ptr(),
-            b, s_max, h, hkv, d, float(d ** -0.5), _DTYPES[q.dtype], stream,
+            0 if ws is None else ws.data_ptr(),
+            b, s_max, h, hkv, d, n_split, span, float(d ** -0.5), _DTYPES[q.dtype], stream,
         )
         build.check(rc, "decode_attention_q8")
         return out

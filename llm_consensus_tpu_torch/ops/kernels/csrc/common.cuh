@@ -95,3 +95,58 @@ template <int n>
 __device__ __forceinline__ void lct_cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" :: "n"(n) : "memory");
 }
+
+// 4 bytes from device to shared memory (cp.async.ca); zeroed when !valid.
+__device__ __forceinline__ void lct_cp_async4(void* dst, const void* src, bool valid) {
+  const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"(addr), "l"(src), "r"(valid ? 4 : 0) : "memory");
+}
+
+// ---------------------------------------------------------------------------
+// mbarriers (Hopper; K4's split-KV pass and K10).
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ unsigned lct_smem(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// A barrier whose phase completes after `count` arrivals (and, where a
+// thread announced some, that many bytes of TMA copies).
+__device__ __forceinline__ void lct_mbar_init(uint64_t* bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+               :: "r"(lct_smem(bar)), "r"(count) : "memory");
+}
+// Makes the initialised barriers visible to the async proxy; a
+// __syncthreads() after it makes them visible to the block.
+__device__ __forceinline__ void lct_mbar_init_fence() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+__device__ __forceinline__ void lct_mbar_arrive(uint64_t* bar) {
+  asm volatile("{\n.reg .b64 st;\nmbarrier.arrive.shared::cta.b64 st, [%0];\n}\n"
+               :: "r"(lct_smem(bar)) : "memory");
+}
+// One arrival that also announces `bytes` of TMA copies to come.
+__device__ __forceinline__ void lct_mbar_arrive_expect_tx(uint64_t* bar, unsigned bytes) {
+  asm volatile("{\n.reg .b64 st;\nmbarrier.arrive.expect_tx.shared::cta.b64 st, [%0], %1;\n}\n"
+               :: "r"(lct_smem(bar)), "r"(bytes) : "memory");
+}
+// One arrival once every cp.async this thread issued so far has landed
+// (counted in the barrier's arrivals).
+__device__ __forceinline__ void lct_cp_async_mbar_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n"
+               :: "r"(lct_smem(bar)) : "memory");
+}
+// Wait until the barrier's phase of the given parity (0, 1, 0, ... for
+// its first, second, third completion) has completed.
+__device__ __forceinline__ void lct_mbar_wait(uint64_t* bar, unsigned parity) {
+  const unsigned addr = lct_smem(bar);
+  unsigned done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(addr), "r"(parity) : "memory");
+  } while (!done);
+}

@@ -1,6 +1,7 @@
-// K3, K4, K7 and K7-q8: one-token decode attention over the KV cache,
-// plain and with a prefix shared by every row, over the dense cache or
-// over the int8 cache.
+// K3, K7 and K7-q8: one-token decode attention over the KV cache, plain
+// and with a prefix shared by every row, over the dense cache or over the
+// int8 cache. (K4, decode over the int8 cache without a shared prefix, is
+// the split-KV pass of decode_attention_q8.cu.)
 //
 // K3 replaces the Pallas kernel llm_consensus_tpu/ops/pallas/attention.py
 // (flash_decode_attention -> _decode_kernel). Same semantics: query head h
@@ -14,16 +15,14 @@
 // prefix is read once for all rows, each row reads only its own slots
 // [prefix_len, valid_len), and the partial softmaxes merge by log-sum-exp.
 //
-// K4 replaces flash_decode_attention_q8 (-> _decode_q8_row_kernel and
-// _decode_q8_kernel, whose arithmetic is _q8_attend) and K7-q8 replaces
-// flash_decode_attention_shared_prefix_q8 (through _ragged_attention, the
-// scale fold of _online_fold). The int8 cache is head-major, [B, Hkv,
-// S_max, D] int8 with a float32 scale per slot [B, Hkv, S_max]. As there,
-// the scales fold into the scores (q . k_q times k_scale * d^-1/2) and into
-// the value product only (p * v_scale); the softmax denominator stays the
-// true sum of p. The _stacked forms of both (K5 and K7-q8-stacked) exist in
-// the JAX package because a Pallas operand must be a whole buffer; here
-// they are these kernels launched on a layer's views. Pallas' choice
+// K7-q8 replaces flash_decode_attention_shared_prefix_q8 (through
+// _ragged_attention, the scale fold of _online_fold). The int8 cache is
+// head-major, [B, Hkv, S_max, D] int8 with a float32 scale per slot [B,
+// Hkv, S_max]. As there, the scales fold into the scores (q . k_q times
+// k_scale * d^-1/2) and into the value product only (p * v_scale); the
+// softmax denominator stays the true sum of p. The _stacked form
+// (K7-q8-stacked) exists in the JAX package because a Pallas operand must
+// be a whole buffer; here it is this kernel launched on a layer's views. Pallas' choice
 // between a row program and a per-head program (_ROW_KERNEL_MAX_KV_BYTES)
 // is a VMEM budget, not semantics, and has no counterpart here.
 //
@@ -40,9 +39,9 @@
 // B * G is below a few hundred. The int8 forms read D + 4 bytes per slot
 // and head instead of 2 * D: half the bf16 cache's bytes at D = 128.
 //
-// Design of the row kernel (K3, K4, and K7's suffix-and-merge pass). One
-// block per (batch row, kv head); its 8 warps split the row's slots [lo,
-// valid_len) round-robin, so only those are read from device memory. A
+// Design of the row kernel (K3, and the suffix-and-merge pass of K7 and
+// K7-q8). One block per (batch row, kv head); its 8 warps split the row's
+// slots [lo, valid_len) round-robin, so only those are read from device memory. A
 // warp reads one slot's K and V row per step (dense: lane i holds
 // dimensions i, i + 32, ...; int8: lane i holds dimensions 4i .. 4i + 3 at
 // D = 128, one 4-byte load, and the slot's two scales) and serves all G
@@ -59,8 +58,9 @@
 // over the staged slots: one lane per slot for the scores, one softmax
 // update per chunk, then the weighted sum of V. The split's (max, sum,
 // output) per query goes to a float32 workspace that the row kernel
-// merges. Split-KV for K3 and K4 (small batches on 132 SMs) and
-// tensor-core score tiles for K7's prefix are later work.
+// merges. Split-KV for K3 (small batches on 132 SMs; K4's pass in
+// decode_attention_q8.cu) and tensor-core score tiles for K7's prefix are
+// later work.
 
 #include "common.cuh"
 
@@ -84,7 +84,7 @@ struct RowArgs {
   float scale;
   int lo;  // first slot the row kernel reads (0, or K7's prefix length)
   // K7's prefix partials, [n_split, B, H] and [n_split, B, H, D] float32;
-  // n_split = 0 for K3 and K4.
+  // n_split = 0 for K3.
   const float* pm;
   const float* pl;
   const float* pacc;
@@ -592,22 +592,10 @@ extern "C" int lct_shared_prefix_attention(const void* q, const void* k,
   return run(a, false, h, d, dtype, prefix_len, w, stream);
 }
 
-// K4. q: [B, 1, H, D] float32 or bfloat16; k_q, v_q: [B, Hkv, S_max, D]
+// K7-q8. q: [B, 1, H, D] float32 or bfloat16; k_q, v_q: [B, Hkv, S_max, D]
 // int8; k_scale, v_scale: [B, Hkv, S_max] float32; valid_len: [B] int32;
-// out: [B, 1, H, D] in q's type; all contiguous on the card.
-extern "C" int lct_decode_attention_q8(const void* q, const void* k_q,
-                                       const void* k_scale, const void* v_q,
-                                       const void* v_scale,
-                                       const void* valid_len, void* out,
-                                       int b, int s_max, int h, int hkv,
-                                       int d, float scale, int dtype,
-                                       void* stream) {
-  const RowArgs a = row_args(q, k_q, v_q, k_scale, v_scale, valid_len, out,
-                             b, s_max, hkv, scale, 0, nullptr, h);
-  return run(a, true, h, d, dtype, 0, nullptr, stream);
-}
-
-// K7-q8. As K4, plus prefix_len and the workspace ws, as K7.
+// out: [B, 1, H, D] in q's type; all contiguous on the card. Plus
+// prefix_len and the workspace ws, as K7.
 extern "C" int lct_shared_prefix_attention_q8(
     const void* q, const void* k_q, const void* k_scale, const void* v_q,
     const void* v_scale, const void* valid_len, void* out, void* ws, int b,

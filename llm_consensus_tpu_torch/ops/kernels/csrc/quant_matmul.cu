@@ -68,22 +68,12 @@
 // int4 weights (16 layers x 23.6 MB plus the 32.8 MB lm_head), ~0.12 ms at
 // 3.35 TB/s, against ~0.24 ms for int8.
 //
-// What the design does about it: it is K6 with one change, the chunk.
-// The packing is not interleaved, so a chunk of 64 packed rows (128
-// logical rows, the same work as K6's chunk) stages x's columns
-// [r0, r0 + 64) and [K/2 + r0, K/2 + r0 + 64) side by side, and each
-// packed weight byte, read from shared memory once, feeds two B fragments:
-// its low nibble against the first set of columns, its high nibble
-// against the second (the Pallas kernel's "two dots"). Sign extension is
-// integer work on 32-bit lanes, ((b & 0xF) ^ 8) - 8, done as the fragment
-// is built. The shape rule guarantees only K/2 % 64 == 0, which is what
-// the 64-row chunk needs, so every product the rule accepts runs on the
-// tensor cores (bf16 x, 16-byte aligned); K splits into parts of whole
-// chunks and split_reduce_kernel adds them in order, as for K6. The
-// CUDA-core form for float32 x stages 256 packed rows a chunk (both
-// halves of x, 512 columns) and applies both nibbles of each 4-byte load.
-// The nibble unpack costs ALU work beside each mma; wgmma, TMA and an
-// unpack pipeline that keeps the tensor cores fed are later work.
+// This file holds K10's CUDA-core form, for float32 x (and bf16 x that is
+// not 16-byte aligned): it stages 256 packed rows a chunk (both halves of
+// x, 512 columns) and applies both nibbles of each 4-byte load, sign
+// extension being integer work, ((b & 0xF) ^ 8) - 8. bf16 x takes the
+// tensor-core form in quant4_matmul.cu (wgmma, TMA-fed stages, split-K
+// reduced inside a thread-block cluster).
 
 #include "common.cuh"
 
@@ -443,104 +433,6 @@ __global__ void __launch_bounds__(kTcThreads)
   tc_store<TO, MI>(acc, smem, scale, out, ws, m, n, m0, n0);
 }
 
-// K10's tensor-core form. Grid as K6's; part z covers packed rows
-// [z * k2_split, (z + 1) * k2_split) and so the logical rows of both
-// halves. A chunk is kTc4Rows packed rows: x's columns [r0, r0 + 64) are
-// staged as columns 0-63 of xs, [K/2 + r0, K/2 + r0 + 64) as columns
-// 64-127. Warp v takes packed rows [16v, 16v + 16) of the chunk: each
-// byte's low nibble meets xs's columns 16v.., its high nibble 64 + 16v..
-constexpr int kTc4Rows = kTcBK / 2;  // 64 packed rows = 128 logical rows
-
-template <typename TO, int MI>
-__global__ void __launch_bounds__(kTcThreads)
-    quant4_matmul_tc_kernel(const __nv_bfloat16* __restrict__ x,
-                            const int8_t* __restrict__ w,
-                            const float* __restrict__ scale, TO* __restrict__ out,
-                            float* __restrict__ ws, int m, int k, int n,
-                            int k2_split) {
-  constexpr int BM = 16 * MI;
-  constexpr int kXRow = kTcBK + kXPad;
-  constexpr int kXVecs = BM * kTcBK / 8 / kTcThreads;  // uint4 of x a thread
-  static_assert(kTc4Rows * kTcBN / 16 == kTcThreads, "one uint4 of w a thread");
-  constexpr int kStage = BM * kXRow * 2 + kTc4Rows * kWRow;
-  constexpr int kRed = 4 * BM * kTcBN * 4;
-  __shared__ __align__(16) unsigned char smem[kStage > kRed ? kStage : kRed];
-  __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(smem);
-  int8_t* wsm = reinterpret_cast<int8_t*>(smem + BM * kXRow * 2);
-
-  const int k2 = k / 2;
-  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * kTcBN;
-  const int r_lo = blockIdx.z * k2_split, r_hi = min(k2, r_lo + k2_split);
-  const int t = threadIdx.x, lane = t % 32, warp = t / 32;
-  const int g = lane / 4, tq = lane % 4;
-
-  uint4 xr[kXVecs], wr;
-  auto load = [&](int r0) {
-#pragma unroll
-    for (int i = 0; i < kXVecs; ++i) {
-      const int v = t + i * kTcThreads, row = v / (kTcBK / 8), c = v % (kTcBK / 8);
-      const int col = (c < kTc4Rows / 8 ? r0 : k2 + r0 - kTc4Rows) + c * 8;
-      xr[i] = m0 + row < m
-                  ? *reinterpret_cast<const uint4*>(x + (size_t)(m0 + row) * k + col)
-                  : make_uint4(0, 0, 0, 0);
-    }
-    wr = *reinterpret_cast<const uint4*>(w + (size_t)(r0 + t / 2) * n + n0 + (t % 2) * 16);
-  };
-
-  float acc[MI][4][4];
-#pragma unroll
-  for (int mi = 0; mi < MI; ++mi)
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[mi][nt][e] = 0.f;
-
-  if (r_lo < r_hi) load(r_lo);
-  for (int r0 = r_lo; r0 < r_hi; r0 += kTc4Rows) {
-    __syncthreads();  // the previous chunk is no longer read
-#pragma unroll
-    for (int i = 0; i < kXVecs; ++i) {
-      const int v = t + i * kTcThreads, row = v / (kTcBK / 8), c = v % (kTcBK / 8);
-      *reinterpret_cast<uint4*>(xs + row * kXRow + c * 8) = xr[i];
-    }
-    *reinterpret_cast<uint4*>(wsm + (t / 2) * kWRow + (t % 2) * 16) = wr;
-    __syncthreads();
-    if (r0 + kTc4Rows < r_hi) load(r0 + kTc4Rows);
-
-    const int kb = warp * 16;
-    uint32_t alo[MI][4], ahi[MI][4];
-#pragma unroll
-    for (int mi = 0; mi < MI; ++mi) {
-      const __nv_bfloat16* r0p = xs + (mi * 16 + g) * kXRow + kb + 2 * tq;
-      const __nv_bfloat16* r8p = r0p + 8 * kXRow;
-      alo[mi][0] = *reinterpret_cast<const uint32_t*>(r0p);
-      alo[mi][1] = *reinterpret_cast<const uint32_t*>(r8p);
-      alo[mi][2] = *reinterpret_cast<const uint32_t*>(r0p + 8);
-      alo[mi][3] = *reinterpret_cast<const uint32_t*>(r8p + 8);
-      ahi[mi][0] = *reinterpret_cast<const uint32_t*>(r0p + kTc4Rows);
-      ahi[mi][1] = *reinterpret_cast<const uint32_t*>(r8p + kTc4Rows);
-      ahi[mi][2] = *reinterpret_cast<const uint32_t*>(r0p + kTc4Rows + 8);
-      ahi[mi][3] = *reinterpret_cast<const uint32_t*>(r8p + kTc4Rows + 8);
-    }
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt) {
-      const int8_t* wc = wsm + (kb + 2 * tq) * kWRow + nt * 8 + g;
-      const int b0 = wc[0], b1 = wc[kWRow], b8 = wc[8 * kWRow], b9 = wc[9 * kWRow];
-      const uint32_t lo0 = pack_bf16(lo_nibble(b0), lo_nibble(b1));
-      const uint32_t lo1 = pack_bf16(lo_nibble(b8), lo_nibble(b9));
-      const uint32_t hi0 = pack_bf16(hi_nibble(b0), hi_nibble(b1));
-      const uint32_t hi1 = pack_bf16(hi_nibble(b8), hi_nibble(b9));
-#pragma unroll
-      for (int mi = 0; mi < MI; ++mi) {
-        lct_mma_bf16(acc[mi][nt], alo[mi], lo0, lo1);
-        lct_mma_bf16(acc[mi][nt], ahi[mi], hi0, hi1);
-      }
-    }
-  }
-
-  tc_store<TO, MI>(acc, smem, scale, out, ws, m, n, m0, n0);
-}
-
 // out = cast(scale * (sum over z of ws[z])), z in order.
 template <typename TO>
 __global__ void split_reduce_kernel(const float* __restrict__ ws,
@@ -555,17 +447,8 @@ __global__ void split_reduce_kernel(const float* __restrict__ ws,
   out[idx] = lct_from_float<TO>(sum * scale[idx % n]);
 }
 
-// K6's (kInt4 false) or K10's (true) kernels; k is the logical contraction
-// dim for both. The tensor-core kernels take the rows of w a part covers.
-template <bool kInt4, typename TO, int MI>
-auto tc_kernel() {
-  if constexpr (kInt4) {
-    return quant4_matmul_tc_kernel<TO, MI>;
-  } else {
-    return quant_matmul_tc_kernel<TO, MI>;
-  }
-}
-
+// K6's (kInt4 false) or K10's (true) CUDA-core kernels; k is the logical
+// contraction dim for both.
 template <bool kInt4, typename TX, typename TO, int MT>
 auto cc_kernel() {
   if constexpr (kInt4) {
@@ -575,7 +458,8 @@ auto cc_kernel() {
   }
 }
 
-template <bool kInt4, typename TO>
+// K6's tensor-core kernel; the kernel takes the rows of w a part covers.
+template <typename TO>
 int launch_tc(const void* x, const void* w, const void* scale, void* out,
               float* ws, int m, int k, int n, int splits, cudaStream_t st) {
   const __nv_bfloat16* xp = static_cast<const __nv_bfloat16*>(x);
@@ -585,10 +469,10 @@ int launch_tc(const void* x, const void* w, const void* scale, void* out,
   float* wsp = splits > 1 ? ws : nullptr;
   const int mi = m <= 16 ? 1 : m <= 32 ? 2 : 4;
   const dim3 grid((m + 16 * mi - 1) / (16 * mi), n / kTcBN, splits);
-  const int rows_split = (kInt4 ? k / 2 : k) / splits;
-  const auto kernel = mi == 1   ? tc_kernel<kInt4, TO, 1>()
-                      : mi == 2 ? tc_kernel<kInt4, TO, 2>()
-                                : tc_kernel<kInt4, TO, 4>();
+  const int rows_split = k / splits;
+  const auto kernel = mi == 1   ? quant_matmul_tc_kernel<TO, 1>
+                      : mi == 2 ? quant_matmul_tc_kernel<TO, 2>
+                                : quant_matmul_tc_kernel<TO, 4>;
   kernel<<<grid, kTcThreads, 0, st>>>(xp, wp, sp, op, wsp, m, k, n, rows_split);
   if (splits > 1) {
     const size_t mn = (size_t)m * n;
@@ -618,13 +502,13 @@ template <bool kInt4, typename TX>
 int launch_x(const void* x, const void* w, const void* scale, void* out,
              float* ws, int m, int k, int n, int out_dtype, int splits,
              cudaStream_t st) {
-  if constexpr (sizeof(TX) == 2) {
+  if constexpr (sizeof(TX) == 2 && !kInt4) {
     if (splits > 0) {
       if (out_dtype == LCT_DTYPE_F32) {
-        return launch_tc<kInt4, float>(x, w, scale, out, ws, m, k, n, splits, st);
+        return launch_tc<float>(x, w, scale, out, ws, m, k, n, splits, st);
       }
       if (out_dtype == LCT_DTYPE_BF16) {
-        return launch_tc<kInt4, __nv_bfloat16>(x, w, scale, out, ws, m, k, n, splits, st);
+        return launch_tc<__nv_bfloat16>(x, w, scale, out, ws, m, k, n, splits, st);
       }
       return (int)cudaErrorInvalidValue;
     }
@@ -642,7 +526,7 @@ int dispatch(const void* x, const void* w, const void* scale, void* out, void* w
              void* stream) {
   if (m <= 0 || n <= 0) return 0;
   if (n % kTileN || k <= 0 || (kInt4 && k % 2)) return (int)cudaErrorInvalidValue;
-  if (splits > 0 && (x_dtype != LCT_DTYPE_BF16 || k % (kTcBK * splits) ||
+  if (splits > 0 && (kInt4 || x_dtype != LCT_DTYPE_BF16 || k % (kTcBK * splits) ||
                      (splits > 1 && !ws))) {
     return (int)cudaErrorInvalidValue;
   }
@@ -677,8 +561,9 @@ extern "C" int lct_quant_matmul(const void* x, const void* w,
                          splits, stream);
 }
 
-// K10: as lct_quant_matmul, with w the packed int4 [K/2, N] (K even, the
-// logical contraction dim); splits > 0 needs K a multiple of 128 * splits.
+// K10's CUDA-core form: as lct_quant_matmul with splits == 0 (the only
+// value it takes), w the packed int4 [K/2, N] (K even, the logical
+// contraction dim). bf16 x takes lct_quant4_matmul_wg (quant4_matmul.cu).
 extern "C" int lct_quant4_matmul(const void* x, const void* w,
                                  const void* scale, void* out, void* ws,
                                  int m, int k, int n, int x_dtype,

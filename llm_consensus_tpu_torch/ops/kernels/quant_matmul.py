@@ -20,9 +20,11 @@ JAX package computes wherever its kernel is off (every CPU run included).
 K10 replaces ``quant_matmul.py``'s ``quant4_matmul_2d`` (``_q4mm_kernel``):
 ``x [M, K]`` times the packed int4 ``w_q [K/2, N]`` (int8 bytes; the low
 nibble holds logical row ``r``, the high nibble row ``r + K/2``, both
-sign-extended), the same float32 sums, scale and cast. It is built like
-K6 (tensor cores for bf16 ``x``, CUDA cores for float32 ``x``) and takes
-every product that :func:`quant4_matmul_supported` accepts.
+sign-extended), the same float32 sums, scale and cast. bf16 ``x`` takes
+the wgmma form of ``csrc/quant4_matmul.cu`` (its launch from
+:func:`quant4_tile`; split-K reduced inside a thread-block cluster, no
+workspace), float32 ``x`` the CUDA-core form of ``csrc/quant_matmul.cu``.
+It takes every product that :func:`quant4_matmul_supported` accepts.
 """
 
 from __future__ import annotations
@@ -34,7 +36,8 @@ from llm_consensus_tpu_torch.ops.kernels import build
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _TILE_N = 32  # csrc/quant_matmul.cu: kTileN (and kTcBN)
 _TC_BK = 128  # csrc/quant_matmul.cu: kTcBK
-_MIN_BLOCKS = 2 * 132  # two blocks for each of the H100's SMs
+_SMS = 132  # the H100's SMs
+_MIN_BLOCKS = 2 * _SMS  # two blocks for each of them
 _MAX_SPLITS = 16
 
 # The JAX package's shape rule (ops/pallas/quant_matmul.py), kept as it is
@@ -111,6 +114,61 @@ def tensor_core_splits(m: int, k: int, n: int) -> int:
     return splits
 
 
+# csrc/quant4_matmul.cu, K10's wgmma form for bf16 x.
+_Q4_MPS = (8, 16, 32, 64, 96, 128, 192, 256)  # x's rows padded to wgmma's N
+_Q4_ROWS = 64  # kRows: packed rows a stage
+_Q4_BN = 128  # kBN: columns a block
+_Q4_MAX_CLUSTER = 8  # the portable cluster size
+_Q4_MAX_STAGES = 8  # kMaxStages
+_Q4_RING_TARGET = 96 * 1024  # bytes of ring the stage count aims at: two blocks an SM
+_Q4_WIDE_BLOCKS = 64  # the grid's block target above mp = 32
+
+
+def _q4_stage_bytes(mp: int) -> int:
+    """A stage: a 64-row x 128-column box of w and the two x boxes it meets
+    (mp rows x 128 bytes each)."""
+    return _Q4_ROWS * _Q4_BN + 2 * mp * 128
+
+
+def quant4_smem_bytes(mp: int, stages: int) -> int:
+    """csrc/quant4_matmul.cu's smem_bytes: the ring, which the float32
+    partial tile [mp, 128 + 8] reuses at the end, then 16 barriers."""
+    return max(stages * _q4_stage_bytes(mp), mp * (_Q4_BN + 8) * 4) + 2 * _Q4_MAX_STAGES * 8
+
+
+def quant4_tile(m: int, k: int, n: int) -> dict:
+    """The launch of K10's wgmma form (bf16 x) for ``x [m, k] @ w [k/2, n]``
+    (``k`` the logical contraction dim), the counterpart of
+    :func:`tensor_core_splits`.
+
+    - ``mp``: x's rows padded to wgmma's N (8, 16, 32, 64, 96, 128, 192
+      or 256);
+    - ``splits``: K/2's packed rows cut into that many parts of whole
+      64-row stages, one block each, forming one thread-block cluster per
+      128-column tile (at most 8); the cluster adds the parts inside the
+      launch. Doubled while the grid has fewer blocks than the H100's 132
+      SMs at mp <= 32, where a block's products are small and more blocks
+      keep more bytes in flight; above, fewer than 64 blocks: each part's
+      partial tile (mp x 128 floats) crosses distributed shared memory, and
+      on the H100 64 blocks timed faster there than 128 or more (PERF.md
+      §6, run 7G);
+    - ``stages``: the ring's depth (3-8, about 96 KB of ring);
+    - ``smem``: dynamic shared memory a block; ``grid``: (splits, n / 128).
+    """
+    if m < 1 or m > _Q4_MPS[-1] or n % _Q4_BN or k % 2 or (k // 2) % _Q4_ROWS:
+        raise ValueError(f"quant4_matmul_2d: no wgmma tile for x [{m}, {k}] @ w [{k // 2}, {n}]")
+    mp = next(p for p in _Q4_MPS if p >= m)
+    k2, tiles = k // 2, n // _Q4_BN
+    target = _SMS if mp <= 32 else _Q4_WIDE_BLOCKS
+    splits = 1
+    while (tiles * splits < target and splits < _Q4_MAX_CLUSTER
+           and k2 % (2 * splits * _Q4_ROWS) == 0):
+        splits *= 2
+    stages = max(3, min(_Q4_MAX_STAGES, _Q4_RING_TARGET // _q4_stage_bytes(mp)))
+    return dict(mp=mp, splits=splits, rows=k2 // splits, stages=stages,
+                smem=quant4_smem_bytes(mp, stages), grid=(splits, tiles))
+
+
 def quant_matmul_2d_plain(
     x: torch.Tensor,
     w_q: torch.Tensor,
@@ -153,11 +211,24 @@ def _launch(name: str, x, w_q, scale, out_dtype, packed: bool) -> torch.Tensor:
             raise ValueError(f"{name} needs contiguous tensors on the card")
     lib = build.load_library()
     out = torch.empty((m, n), dtype=out_dtype, device=x.device)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    tc = x.dtype == torch.bfloat16 and k % _TC_BK == 0 and x.data_ptr() % 16 == 0
+    if packed and tc and m <= _MAX_M and n % 128 == 0:
+        # K10's wgmma form; its TMA tensor maps need w (and x) 16-byte aligned.
+        if w_q.data_ptr() % 16:
+            raise ValueError(f"{name} needs w_q 16-byte aligned")
+        t = quant4_tile(m, k, n)
+        rc = lib.lct_quant4_matmul_wg(
+            x.data_ptr(), w_q.data_ptr(), scale.data_ptr(), out.data_ptr(),
+            m, k, n, _DTYPES[out_dtype], t["mp"], t["splits"], t["stages"], stream,
+        )
+        build.check(rc, name)
+        return out
     # bf16 x takes the tensor-core kernel (K in whole 128-row chunks, x
     # 16-byte aligned for its vector loads); float32 x the CUDA-core one.
     splits = 0
     ws = None
-    if x.dtype == torch.bfloat16 and k % _TC_BK == 0 and x.data_ptr() % 16 == 0:
+    if tc and not packed:
         splits = tensor_core_splits(m, k, n)
         if splits > 1:
             ws = torch.empty((splits, m, n), dtype=torch.float32, device=x.device)
@@ -165,8 +236,7 @@ def _launch(name: str, x, w_q, scale, out_dtype, packed: bool) -> torch.Tensor:
     rc = entry(
         x.data_ptr(), w_q.data_ptr(), scale.data_ptr(), out.data_ptr(),
         0 if ws is None else ws.data_ptr(),
-        m, k, n, _DTYPES[x.dtype], _DTYPES[out_dtype], splits,
-        torch.cuda.current_stream(x.device).cuda_stream,
+        m, k, n, _DTYPES[x.dtype], _DTYPES[out_dtype], splits, stream,
     )
     build.check(rc, name)
     return out

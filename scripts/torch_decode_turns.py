@@ -1,0 +1,191 @@
+#!/usr/bin/env python3
+"""Decode-side kernel time and wall of the port's engine, in turns between
+source trees.
+
+    python3 scripts/torch_decode_turns.py TREE [TREE ...]
+
+Each TREE is a checkout of this repository (``.`` is the current one; a
+parent commit unpacked with ``git archive`` into a directory that
+``.gitignore`` lists works too). For each tree, in the order given, a fresh
+process puts that tree first on ``sys.path``, builds its kernels and makes
+llama-1b with random weights from seed 0 (``chip_smoke.build_engine``):
+
+- on int4 weights with an int8 KV cache, the N = 64 self-consistency
+  fan-out (``chip_smoke.SC_PROMPT``, ``NEW_TOKENS`` new tokens): one
+  warm-up call, one timed call (wall and wall per step), one call under
+  ``torch.profiler``: device ms per call of K10 (the int4 matmul; its
+  kernels and, in a tree that has it, the split-K reduce) and of the
+  int8-cache decode attention (K4, and K7-q8, which the fan-out runs), each
+  the kernels' summed device time over the wrapper's launch count;
+- on int8 weights with the int8 KV cache, one consensus question
+  (``chip_smoke.run_consensus``: default panel, cap 2, 64 new tokens), where
+  K4 decodes: its seconds unprofiled, then K4's device ms per launch from a
+  profiled repeat;
+- the host's cost of one wrapper call, enqueue only (the card is not
+  waited on inside the timed loop, and runs behind the host): K4 on the
+  panel's decode (q [4, 1, 16, 128], int8 cache [4, 8, 2176, 128]) and
+  K10 on llama-1b's w_gate at M = 64, ``HOST_CALLS`` calls each.
+
+Prints one JSON line per tree, then the card's name and power limit. Give
+two trees as A B B A to compare them in one call: the host's speed moves
+between calls. Needs a CUDA card.
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+from collections import defaultdict
+from pathlib import Path
+
+N = 64
+NEW_TOKENS = 32
+HOST_CALLS = 200
+# Kernel names (substrings) by role. K10: the wgmma kernel, the older
+# tensor-core kernel and its split-K reduce (K6 is not launched on int4
+# weights). K4: the split-KV pass and its merge, or the older row kernel
+# on the int8 cache, which K7-q8's row pass shares (its launches are
+# printed beside).
+K10_NAMES = ("quant4_wgmma_kernel", "quant4_matmul_tc_kernel", "split_reduce_kernel")
+K4_NAMES = ("decode_q8_split_kernel", "decode_q8_merge_kernel", "decode_row_kernel<(anonymous namespace)::Q8")
+K7Q8_PREFIX = "prefix_kernel<(anonymous namespace)::Q8"
+
+
+def device_ms(torch, fn) -> tuple[float, dict]:
+    """Run fn under the profiler; return (wall s, device ms by kernel name)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    by_name: dict[str, float] = defaultdict(float)
+    for evt in prof.events():
+        if evt.device_type == torch.autograd.DeviceType.CUDA:
+            by_name[evt.name] += evt.time_range.elapsed_us() / 1e3
+    return wall, by_name
+
+
+def host_us_per_call(torch, fn) -> float:
+    """Microseconds of host time per call, enqueue only."""
+    for _ in range(10):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(HOST_CALLS):
+        fn()
+    us = (time.perf_counter() - t0) * 1e6 / HOST_CALLS
+    torch.cuda.synchronize()
+    return us
+
+
+def wrapper_host_costs(torch, cfg) -> dict:
+    """K4 at the panel's decode and K10 at w_gate, M = 64 (random data)."""
+    from llm_consensus_tpu_torch.models.cache import quantize_kv
+    from llm_consensus_tpu_torch.ops.kernels import attention as ka
+    from llm_consensus_tpu_torch.ops.kernels import quant_matmul as kq
+    from llm_consensus_tpu_torch.ops.quant import quantize_tensor4
+
+    g = torch.Generator(device="cuda").manual_seed(0)
+    h, hkv, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    q = torch.randn(4, 1, h, d, generator=g, device="cuda").to(torch.bfloat16)
+    (kq_, ks), (vq_, vs) = (quantize_kv(torch.randn(4, hkv, 2176, d, generator=g, device="cuda"))
+                            for _ in range(2))
+    vl = torch.full((4,), 2100, dtype=torch.int32, device="cuda")
+    x = torch.randn(64, cfg.d_model, generator=g, device="cuda").to(torch.bfloat16)
+    w = quantize_tensor4(torch.randn(cfg.d_model, cfg.d_ff, generator=g, device="cuda") * 0.02, 0)
+    return {
+        "k4_host_us_per_call": host_us_per_call(
+            torch, lambda: ka.flash_decode_attention_q8(q, kq_, ks, vq_, vs, vl)),
+        "k10_host_us_per_call": host_us_per_call(
+            torch, lambda: kq.quant4_matmul_2d(x, w.q, w.scale)),
+    }
+
+
+def summed(by_name: dict, names) -> float:
+    return sum(ms for name, ms in by_name.items() if any(k in name for k in names))
+
+
+def child(tree: str) -> None:
+    sys.path.insert(0, str(Path(tree).resolve()))
+    import torch
+
+    import chip_smoke
+    from llm_consensus_tpu_torch.backends.local import LocalBackend
+    from llm_consensus_tpu_torch.models.configs import get_config
+    from llm_consensus_tpu_torch.ops import kernels
+
+    cfg = get_config("llama-1b")
+    out = {"tree": tree, "card": torch.cuda.get_device_name(0)}
+    out["host"] = wrapper_host_costs(torch, cfg)
+
+    engine = chip_smoke.build_engine(torch, cfg, NEW_TOKENS, quant="int4", kv_quant=True)
+    prompts, temps = [chip_smoke.SC_PROMPT] * N, [0.7] * N
+
+    def fan_out():
+        engine.generate_texts(prompts, temperatures=temps, seed=0)
+
+    fan_out()  # warm-up: the kernel library, cuBLAS handles
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fan_out()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    kernels.reset_launch_counts()
+    _, by_name = device_ms(torch, fan_out)
+    k10 = kernels.quant4_matmul_2d.launches
+    k4 = kernels.flash_decode_attention_q8.launches
+    k7q8 = kernels.flash_decode_attention_shared_prefix_q8.launches
+    out["int4_fan_out"] = {
+        "n": N, "new_tokens": NEW_TOKENS, "wall_s": wall, "wall_ms_per_step": wall * 1e3 / NEW_TOKENS,
+        "k10_launches": k10, "k10_device_ms_per_call": summed(by_name, K10_NAMES) / max(k10, 1),
+        "k4_launches": k4, "k7q8_launches": k7q8,
+        "int8_cache_decode_device_ms_per_call": (
+            (summed(by_name, K4_NAMES) + summed(by_name, (K7Q8_PREFIX,))) / max(k4 + k7q8, 1)),
+        "device_busy_ms": sum(by_name.values()),
+    }
+    del engine
+    torch.cuda.empty_cache()
+
+    engine = chip_smoke.build_engine(torch, cfg, quant="int8", kv_quant=True)
+    engine.generate_texts(["warm-up"], max_new_tokens=4)
+    kernels.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    chip_smoke.run_consensus(LocalBackend(engine))
+    torch.cuda.synchronize()
+    question_s = time.perf_counter() - t0
+    k4 = kernels.flash_decode_attention_q8.launches
+    k7q8 = kernels.flash_decode_attention_shared_prefix_q8.launches
+    kernels.reset_launch_counts()
+    _, by_name = device_ms(torch, lambda: chip_smoke.run_consensus(LocalBackend(engine)))
+    out["int8_question"] = {
+        "seconds": question_s, "k4_launches": k4, "k7q8_launches": k7q8,
+        "k4_device_ms_per_call": summed(by_name, K4_NAMES)
+        / max(kernels.flash_decode_attention_q8.launches, 1),
+        "profiled_k4_launches": kernels.flash_decode_attention_q8.launches,
+        "profiled_k7q8_launches": kernels.flash_decode_attention_shared_prefix_q8.launches,
+    }
+    print(json.dumps(out), flush=True)
+
+
+def main() -> int:
+    if len(sys.argv) > 2 and sys.argv[1] == "--child":
+        child(sys.argv[2])
+        return 0
+    trees = sys.argv[1:] or ["."]
+    for tree in trees:
+        subprocess.run([sys.executable, __file__, "--child", tree], check=True)
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import chip_smoke
+
+    print(chip_smoke.nvidia_smi_line())
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -212,6 +212,79 @@ def _projections(name):
             (d, c.vocab_size))
 
 
+def _magic_unpack(word: torch.Tensor) -> torch.Tensor:
+    """K10's unpack (csrc/quant4_matmul.cu: nibbles_bf16) in torch integer
+    ops: the nibbles at bits 0-3 and 16-19 of each int32 ``word``, as the
+    bf16 pair ``((word & 0x000F000F) ^ 0x43084308) - 136``, low half first."""
+    biased = (word & 0x000F000F) ^ 0x43084308
+    halves = torch.stack([biased & 0xFFFF, biased >> 16], dim=-1).to(torch.int16)
+    return halves.view(torch.bfloat16) - torch.tensor(136.0, dtype=torch.bfloat16)
+
+
+def test_k10_magic_unpack_bit_for_bit_on_every_byte():
+    """Every byte value, in both halves of a 32-bit word and as its low and
+    high nibble (the word shifted right by 4, as the kernel does): the same
+    bf16 bits as ``unpack4`` and as the JAX ``_q4mm_kernel``'s ``low`` and
+    ``high`` arithmetic."""
+    packed = torch.arange(-128, 128, dtype=torch.int32).to(torch.int8)[:, None]  # [256, 1]
+    ref = kq.unpack4(packed, torch.bfloat16)[:, 0]  # rows: 256 low nibbles, then 256 high
+    w32 = jnp.asarray(packed.numpy()).astype(jnp.int32)[:, 0]
+    j_low = ((w32 & 0xF) - ((w32 & 0x8) << 1)).astype(jnp.bfloat16)
+    nib = (w32 >> 4) & 0xF
+    j_high = (nib - ((nib & 0x8) << 1)).astype(jnp.bfloat16)
+    u = packed[:, 0].to(torch.int32) & 0xFF
+    for name, word in (("low half", u), ("high half", u << 16), ("both", u | (u << 16))):
+        for shift, want, jwant in ((0, ref[:256], j_low), (4, ref[256:], j_high)):
+            got = _magic_unpack(word >> shift)
+            half = 1 if name == "high half" else 0
+            assert torch.equal(got[:, half].view(torch.int16), want.view(torch.int16)), name
+            np.testing.assert_array_equal(
+                got[:, half].float().numpy(), np.asarray(jwant, np.float32))
+            if name == "both":
+                assert torch.equal(got[:, 0].view(torch.int16), got[:, 1].view(torch.int16))
+
+
+def _k10_ms():
+    """The M values at which phase 2 of chip_smoke.py holds K10 (the engine's
+    and the serving path's), and M = 256, the largest the rule accepts."""
+    import chip_smoke
+
+    return sorted({m for m, *_ in chip_smoke.k6_cases(get_config("llama-1b"))} | {256})
+
+
+@pytest.mark.parametrize("model", ["llama-1b", "llama3-8b"])
+def test_k10_launch_rule_covers_every_projection(model):
+    """For every projection the shape rule sends to K10, the wgmma launch
+    has a tile with mp >= M, a cluster of at most 8 blocks that cuts K/2
+    into whole 64-row stages, 128-column tiles that cover N exactly (N =
+    384 and 1152 included, which a 256-column tile would not), and shared
+    memory within the H100's 227 KB."""
+    shapes = _projections(model) + ((2048, 384), (2048, 1152))
+    seen = 0
+    for k, n in shapes:
+        for m in _k10_ms():
+            if not kq.quant4_matmul_supported(m, k, n):
+                continue
+            seen += 1
+            t = kq.quant4_tile(m, k, n)
+            splits, tiles = t["grid"]
+            assert t["mp"] == min(p for p in (8, 16, 32, 64, 96, 128, 192, 256) if p >= m)
+            assert splits == t["splits"] and splits in (1, 2, 4, 8)
+            assert splits * t["rows"] == k // 2 and t["rows"] % 64 == 0
+            assert tiles * 128 == n
+            assert 3 <= t["stages"] <= 8
+            assert t["smem"] == kq.quant4_smem_bytes(t["mp"], t["stages"])
+            assert t["mp"] * (128 + 8) * 4 + 128 <= t["smem"] <= 232448
+            assert t["stages"] * (128 * 64 + 2 * t["mp"] * 128) + 128 <= t["smem"]
+    assert seen >= 5 * 2
+
+
+def test_k10_launch_rule_refuses_what_it_cannot_tile():
+    for m, k, n in ((0, 256, 128), (257, 256, 128), (4, 256, 200), (4, 255, 128), (4, 96, 128)):
+        with pytest.raises(ValueError):
+            kq.quant4_tile(m, k, n)
+
+
 @pytest.mark.parametrize("model", ["llama-1b", "llama3-8b"])
 def test_quant4_shape_rule_agrees_with_jax(model):
     ms = (1, 64, 80, 146, 147, 256, 257)
@@ -559,7 +632,11 @@ def cuda():
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_int4_kernel_matches_twin_on_card(cuda, dtype):
     g = torch.Generator(device=cuda).manual_seed(0)
-    for m, k, n, out in ((5, 256, 384, None), (64, 384, 256, None), (3, 2048, 1024, torch.float32)):
+    # The last rows: N a multiple of 128 but not of 256 (384, 1152), M from
+    # 1 to 256; K10 must give the same bits twice.
+    for m, k, n, out in ((5, 256, 384, None), (64, 384, 256, None), (3, 2048, 1024, torch.float32),
+                         (1, 2048, 384, None), (16, 2048, 1152, None), (80, 2048, 1152, torch.float32),
+                         (256, 2048, 384, None), (256, 5632, 2048, torch.float32)):
         x = torch.randn(m, k, generator=g, device=cuda).to(dtype)
         w = quant.quantize_tensor4(torch.randn(k, n, generator=g, device=cuda) * 0.02, 0)
         got = kq.quant4_matmul_2d(x, w.q, w.scale, out)
@@ -567,3 +644,4 @@ def test_int4_kernel_matches_twin_on_card(cuda, dtype):
         # float32: sum order; bf16: one rounding of each element
         tol = 1e-4 if (out or dtype) == torch.float32 else 2.0**-7 * ref.float().abs() + 1e-5
         assert bool(((got.float() - ref.float()).abs() <= tol).all())
+        assert torch.equal(got, kq.quant4_matmul_2d(x, w.q, w.scale, out))

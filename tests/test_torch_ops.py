@@ -19,6 +19,8 @@ import numpy as np
 import pytest
 import torch
 
+import llm_consensus_tpu.ops.pallas.attention as j_pattn
+from llm_consensus_tpu.models import cache as j_cache
 from llm_consensus_tpu.models.configs import RopeScaling as JRopeScaling
 from llm_consensus_tpu.models.transformer import _pallas_blk
 from llm_consensus_tpu.ops import activations as j_act
@@ -31,6 +33,7 @@ from llm_consensus_tpu.ops.pallas import (
     flash_decode_attention_shared_prefix as j_flash_shared_prefix,
     fused_rms_norm as j_fused_rms,
 )
+from llm_consensus_tpu_torch.models.cache import quantize_kv
 from llm_consensus_tpu_torch.models.configs import PRESETS, RopeScaling
 from llm_consensus_tpu_torch.ops import activations, attention, norms, rope
 from llm_consensus_tpu_torch.ops import kernels
@@ -352,6 +355,109 @@ def test_shared_prefix_bf16_within_one_rounding_of_fp32_oracle():
 # ---------------------------------------------------------------------------
 
 
+# ---------------------------------------------------------------------------
+# K4 (K5): the int8-cache decode as a split-KV pass
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("b", [1, 2, 4, 8, 64])
+@pytest.mark.parametrize("hkv", [1, 2, 8])
+def test_k4_split_rule(b, hkv):
+    """K4's grid (Hkv, B, n_split) from the host-known shapes: whole
+    32-slot chunks, at least four a split (one for each warp), every slot
+    covered once, and two blocks for each of the H100's 132 SMs unless the
+    floor of 128 slots a split binds; the workspace the wrapper allocates is the C entry point's
+    n_split * B * H * (D + 2) floats (none for one split)."""
+    src = (ROOT / "llm_consensus_tpu_torch/ops/kernels/csrc/decode_attention_q8.cu").read_text()
+    assert "n_split * B * H * (D + 2)" in src
+    for s_max in (1, 31, 64, 100, 256, 300, 384, 2176, 8192):
+        n, span = ka.decode_q8_splits(b, hkv, s_max)
+        assert span % 32 == 0 and span >= 128
+        assert n * span >= s_max > (n - 1) * span
+        assert b * hkv * n >= 2 * 132 or n == -(-s_max // 128)
+        for h, d in ((hkv, 128), (8 * hkv, 16)):
+            want = n * b * h * (d + 2) if n > 1 else 0
+            assert ka.decode_q8_workspace(b, h, d, n) == want
+
+
+def _emulate_k4(q, k_q, k_scale, v_q, v_scale, valid_len):
+    """csrc/decode_attention_q8.cu's arithmetic in float32 torch: per (row,
+    kv head) the splits the rule picks; in a split, warp w scores chunks w,
+    w + 4, ... of 32 slots with one online-softmax update a chunk (the V
+    scale folded into p); the warps merged by log-sum-exp, then the splits,
+    in order."""
+    b, _, h, d = q.shape
+    hkv, s_max = k_q.shape[1], k_q.shape[2]
+    g = h // hkv
+    n_split, span = ka.decode_q8_splits(b, hkv, s_max)
+    neg = torch.tensor(-float("inf"))
+
+    def merge(states):
+        mx = torch.stack([m for m, _, _ in states]).amax(0)
+        tot_l, tot = torch.zeros(g), torch.zeros(g, d)
+        for m, l, acc in states:
+            c = torch.where(m == neg, 0.0, torch.exp(m - torch.where(mx == neg, 0.0, mx)))
+            tot_l, tot = tot_l + l * c, tot + acc * c[:, None]
+        return mx, tot_l, tot
+
+    out = torch.zeros(b, 1, h, d)
+    for bi in range(b):
+        n = min(max(int(valid_len[bi]), 0), s_max)
+        for kvh in range(hkv):
+            qg = q[bi, 0, kvh * g:(kvh + 1) * g].float() * d**-0.5
+            parts = []
+            for sp in range(n_split):
+                lo, hi = sp * span, min(n, sp * span + span)
+                chunks = max(0, -(-(hi - lo) // 32))
+                warps = []
+                for w in range(4):
+                    m, l, acc = torch.full((g,), -float("inf")), torch.zeros(g), torch.zeros(g, d)
+                    for c in range(w, chunks, 4):
+                        c0 = lo + 32 * c
+                        c1 = min(hi, c0 + 32)
+                        sc = (qg @ k_q[bi, kvh, c0:c1].float().T) * k_scale[bi, kvh, c0:c1]
+                        m_new = torch.maximum(m, sc.amax(-1))
+                        alpha = torch.where(m == neg, 0.0, torch.exp(m - m_new))
+                        p = torch.exp(sc - m_new[:, None])
+                        l = l * alpha + p.sum(-1)
+                        acc = acc * alpha[:, None] + (p * v_scale[bi, kvh, c0:c1]) @ v_q[bi, kvh, c0:c1].float()
+                        m = m_new
+                    warps.append((m, l, acc))
+                parts.append(merge(warps))
+            _, tot_l, tot = merge(parts)
+            o = torch.where(tot_l[:, None] > 0, tot / torch.clamp(tot_l[:, None], min=1e-30), 0.0)
+            out[bi, 0, kvh * g:(kvh + 1) * g] = o
+    return out.to(q.dtype)
+
+
+@pytest.mark.parametrize("b,h,hkv,d,s_max,valid", [
+    (3, 8, 2, 32, 400, [1, 400, 150]),  # 4 splits of 128; splits past valid_len; ragged chunks
+    (2, 4, 4, 16, 37, [37, 1]),  # G = 1, one split, S_max not a multiple of 32
+    (1, 8, 1, 64, 600, [600]),  # G = 8, 5 splits, the last one ragged
+    (2, 8, 4, 128, 257, [257, 128]),  # D = 128, a split of one slot
+])
+def test_k4_split_and_merge_emulated_matches_twin_and_jax(b, h, hkv, d, s_max, valid):
+    rng = np.random.default_rng(b * 1000 + s_max)
+    q = rng.standard_normal((b, 1, h, d)).astype(np.float32)
+    k = rng.standard_normal((b, hkv, s_max, d)).astype(np.float32)
+    v = rng.standard_normal((b, hkv, s_max, d)).astype(np.float32)
+    kq_, ks = (np.asarray(a) for a in j_cache.quantize_kv(jnp.asarray(k)))
+    vq_, vs = (np.asarray(a) for a in j_cache.quantize_kv(jnp.asarray(v)))
+    valid = np.array(valid, np.int32)
+    t = [torch.from_numpy(np.array(a)) for a in (kq_, ks, vq_, vs, valid)]
+    got = _emulate_k4(_t(q), *t).numpy()
+    plain = ka.flash_decode_attention_q8_plain(_t(q), *t).numpy()
+    jax_out = _np(j_pattn.flash_decode_attention_q8(
+        jnp.asarray(q), *map(jnp.asarray, (kq_, ks, vq_, vs, valid)), interpret=True))
+    np.testing.assert_allclose(got, plain, rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(got, jax_out, rtol=1e-5, atol=1e-5)
+    # valid_len 0: zeros, as the twin gives (the JAX kernel averages every
+    # slot there; decode never passes it).
+    t[-1] = torch.zeros(b, dtype=torch.int32)
+    assert not _emulate_k4(_t(q), *t).any()
+    assert not ka.flash_decode_attention_q8_plain(_t(q), *t).any()
+
+
 @pytest.mark.parametrize("scaled", [False, True])
 def test_rope_matches_jax(scaled):
     rng = np.random.default_rng(2)
@@ -414,8 +520,8 @@ def test_cpu_twin_path_counts_no_launch():
 def test_every_kernel_has_a_cuda_source():
     csrc = ROOT / "llm_consensus_tpu_torch/ops/kernels/csrc"
     assert {p.name for p in csrc.glob("*.cu")} == {
-        "rms_norm.cu", "causal_attention.cu", "decode_attention.cu", "quant_matmul.cu",
-        "ragged_paged_attention.cu",
+        "rms_norm.cu", "causal_attention.cu", "decode_attention.cu", "decode_attention_q8.cu",
+        "quant_matmul.cu", "quant4_matmul.cu", "ragged_paged_attention.cu",
     }
 
 
@@ -435,6 +541,7 @@ def cuda():
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_kernels_match_twins_on_card(cuda, dtype):
     g = torch.Generator(device=cuda).manual_seed(0)
+    g_cache = torch.Generator(device=cuda).manual_seed(1)
     tol = 1e-4 if dtype == torch.float32 else 2.0**-6
 
     def rn(*shape):
@@ -459,3 +566,20 @@ def test_kernels_match_twins_on_card(cuda, dtype):
             ka.flash_decode_attention_shared_prefix(qd, kc, vc, vl, 65),
             ka.flash_decode_attention_shared_prefix_plain(qd, kc, vc, vl, 65),
             rtol=tol, atol=tol)
+    # K4's split-KV pass at its edges: valid_len 1 and S_max, S_max not a
+    # whole number of 32-slot chunks, one row over a long cache (many
+    # splits), every head_dim x group size; a second launch gives the same
+    # bits.
+    for b, s_max, valid, grp, d in ((3, 300, [1, 300, 137], 2, 128), (1, 2176, [2176], 2, 128),
+                                    *((2, 200, [200, 77], grp, d) for grp in (1, 2, 4, 8)
+                                      for d in (16, 32, 64, 128))):
+        qd = rn(b, 1, 4 * grp, d)
+        kv = [quantize_kv(torch.randn(b, 4, s_max, d, generator=g_cache, device=cuda))
+              for _ in range(2)]
+        vl = torch.tensor(valid, dtype=torch.int32, device=cuda)
+        args = (qd, kv[0][0], kv[0][1], kv[1][0], kv[1][1], vl)
+        got = ka.flash_decode_attention_q8(*args)
+        ref = ka.flash_decode_attention_q8_plain(*args)
+        bound = 1e-4 if dtype == torch.float32 else 2.0**-7 * ref.float().abs() + 1e-5
+        assert bool(((got.float() - ref.float()).abs() <= bound).all()), (b, s_max, grp, d)
+        assert torch.equal(got, ka.flash_decode_attention_q8(*args))
