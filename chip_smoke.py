@@ -8,7 +8,8 @@ nothing of JAX or of the JAX package. Phases:
 
 1. Build the kernels; print the card's name and power limit, and nvcc's
    register, shared-memory and spill report for K1's and K2's bf16
-   instantiations and for K4's split-KV pass and K10's wgmma kernel.
+   instantiations, for the split-KV pass of K3 and K4 and its merge, and
+   for the wgmma kernel of K6 and K10.
 2. Hold each kernel (K1 RMSNorm, K2 causal prefill attention, K3 decode
    attention, K7 shared-prefix decode attention; K4 int8-cache decode
    attention and K5, K4 on a layer of the stacked cache; K6 the W8A16
@@ -18,8 +19,9 @@ nothing of JAX or of the JAX package. Phases:
    + 128; K6 at M = B on the w_gate shape), bf16 and fp32, plus the main
    path's own largest shapes in ``MAIN_PATH_CASES`` and K6 at every
    llama-1b projection shape for the engine's and the serving path's M
-   (``k6_cases``), also in both types; K10 (the W4A16 matmul) at the same
-   llama-1b shapes and M and at llama3-8b's projections at M = 64 (random
+   (``k6_cases``; its largest, the lm_head at the fan-out's M = 64), also
+   in both types; K10 (the W4A16 matmul) at the same llama-1b shapes and
+   M and at llama3-8b's projections at M = 64 (random
    packed bytes), both types, each case also held against K6 on the same
    integer weights unpacked to int8. K1 also at 3 x 37 rows and at
    llama3-8b's width over a 2048-token prompt, both types; K2 in bf16 also
@@ -29,9 +31,10 @@ nothing of JAX or of the JAX package. Phases:
    32-slot chunks), one row over 2176 slots, and every head_dim in {16,
    32, 64, 128} x group size in {1, 2, 4, 8}; K10 also at N = 384 and
    1152 (multiples of 128, not of 256) for M in {1, 16, 80, 256}
-   and at every llama-1b projection at M = 256, both types. K4 and K10
-   are launched twice on the same inputs and must give the same bits. K7
-   is also held against K3, and K7-q8 against K4, on the same cache. Print
+   and at every llama-1b projection at M = 256, both types. K3, K4, K6
+   and K10 are launched twice on the same inputs and must give the same
+   bits. K7 is also held against K3, and K7-q8 against K4, on the same
+   cache. Print
    the max abs error and the worst ratio of error to tolerance, the
    kernel's time, the twin's time, one PyTorch call computing the same
    function (``library_ms``: F.rms_norm, scaled_dot_product_attention on
@@ -338,17 +341,19 @@ def kernel_cases(torch, cfg, timer):
         mask = (torch.arange(s_max, device="cuda")[None, :] < vl[:, None])[:, None, None, :]
         qdt, kct, vct = (t.transpose(1, 2) for t in (qd, kc, vc))
         n_valid = int(vl.sum())  # only valid slots need reading
-        return row(
+        fn = lambda: ka.flash_decode_attention(qd, kc, vc, vl)  # noqa: E731
+        got = fn()
+        r = row(
             "flash_decode_attention", dtype, b, s,
             f"q[{b},1,{h},{dh}] cache[{b},{s_max},{hkv},{dh}]",
-            ka.flash_decode_attention(qd, kc, vc, vl),
-            ka.flash_decode_attention_plain(qd, kc, vc, vl),
-            lambda: ka.flash_decode_attention(qd, kc, vc, vl),
+            got, ka.flash_decode_attention_plain(qd, kc, vc, vl), fn,
             lambda: ka.flash_decode_attention_plain(qd, kc, vc, vl),
             lambda: F.scaled_dot_product_attention(qdt, kct, vct, attn_mask=mask, enable_gqa=True),
             (2 * n_valid * hkv * dh + 2 * qd.numel()) * es + 4 * b,
             4 * n_valid * h * dh,
         )
+        r["bitwise"] = bool(torch.equal(got, fn()))  # a second launch, the same bits
+        return r
 
     def k7(dtype, b, s):  # the fan-out's decode, 64 tokens into the answer
         es = torch.finfo(dtype).bits // 8
@@ -472,16 +477,17 @@ def kernel_cases(torch, cfg, timer):
         w_lib = dequantize(qt, dtype)  # the library's weight, made ahead of time
         fn = lambda: kq.quant_matmul_2d(x, qt.q, qt.scale, out_dtype)  # noqa: E731
         out_es = torch.finfo(out_dtype or dtype).bits // 8
+        got = fn()
         r = row(
             "quant_matmul_2d", dtype, m, None,
             f"x[{m},{k}] w_q[{k},{n}] -> {out or str(dtype)[6:]}",
-            fn(), kq.quant_matmul_2d_plain(x, qt.q, qt.scale, out_dtype), fn,
+            got, kq.quant_matmul_2d_plain(x, qt.q, qt.scale, out_dtype), fn,
             lambda: kq.quant_matmul_2d_plain(x, qt.q, qt.scale, out_dtype),
             lambda: x @ w_lib,
             k * n + 4 * n + m * k * es + m * n * out_es, 2 * m * k * n,
             out_dtype=out_dtype,
         )
-        r["kn"] = (k, n)
+        r.update(kn=(k, n), bitwise=bool(torch.equal(got, fn())))
         return r
 
     def k10(dtype, m, k, n, out=None, model="llama-1b"):  # x [M, K] @ int4 w [K/2, N]
@@ -1865,8 +1871,8 @@ def main() -> int:
     print(f"  kernels built and loaded in {time.perf_counter() - t0:.1f} s "
           f"({build.library_path().name})")
     for line in ptxas_lines(build, ("rms_norm_kernel", "causal_attention_tc_kernel",
-                                    "decode_q8_split_kernel", "decode_q8_merge_kernel",
-                                    "quant4_wgmma_kernel")):
+                                    "decode_split_kernel", "decode_merge_kernel",
+                                    "quant_wgmma_kernel")):
         print(f"  ptxas {line}")
 
     cfg = get_config("llama-1b")
@@ -1949,14 +1955,14 @@ def main() -> int:
                            ("bf16", "int8", "int4", "serve", "serve_int8", "serve_int4")),
         "flash_causal_attention": (d + "causal_attention.cu", p + "attention.py:90",
                                    ("bf16", "int8", "int4")),
-        "flash_decode_attention": (d + "decode_attention.cu", p + "attention.py:391", ("bf16",)),
+        "flash_decode_attention": (d + "decode_split.cuh", p + "attention.py:391", ("bf16",)),
         "flash_decode_attention_shared_prefix": (
             d + "decode_attention.cu", p + "attention.py:1494", ("bf16",)),
-        "flash_decode_attention_q8": (d + "decode_attention_q8.cu", p + "attention.py:280",
+        "flash_decode_attention_q8": (d + "decode_split.cuh", p + "attention.py:280",
                                       ("int8", "int4")),
         "flash_decode_attention_q8_stacked": (
-            d + "decode_attention_q8.cu", p + "attention.py:444", ("int8_stacked_check",)),
-        "quant_matmul_2d": (d + "quant_matmul.cu", p + "quant_matmul.py:59",
+            d + "decode_split.cuh", p + "attention.py:444", ("int8_stacked_check",)),
+        "quant_matmul_2d": (d + "quant_wgmma.cuh", p + "quant_matmul.py:59",
                             ("int8", "serve_int8")),
         "flash_decode_attention_shared_prefix_q8": (
             d + "decode_attention.cu", p + "attention.py:1541", ("int8", "int4")),
@@ -1965,7 +1971,7 @@ def main() -> int:
         "ragged_paged_attention": (
             d + "ragged_paged_attention.cu", p + "attention.py:1213",
             ("serve", "serve_int8", "serve_int4")),
-        "quant4_matmul_2d": (d + "quant4_matmul.cu", p + "quant_matmul.py:161",
+        "quant4_matmul_2d": (d + "quant_wgmma.cuh", p + "quant_matmul.py:161",
                              ("int4", "serve_int4")),
     }
     summary = []

@@ -8,14 +8,18 @@ launches and nothing else.
 
 - K1 :func:`~.norms.fused_rms_norm` (``csrc/rms_norm.cu``)
 - K2 :func:`~.attention.flash_causal_attention` (``csrc/causal_attention.cu``)
-- K3 :func:`~.attention.flash_decode_attention` (``csrc/decode_attention.cu``)
+- K3 :func:`~.attention.flash_decode_attention` (``csrc/decode_attention.cu``,
+  the split-KV pass of ``csrc/decode_split.cuh`` on the dense cache)
 - K7 :func:`~.attention.flash_decode_attention_shared_prefix`
   (``csrc/decode_attention.cu``)
 - K4 :func:`~.attention.flash_decode_attention_q8` and K5
   :func:`~.attention.flash_decode_attention_q8_stacked`, K4 on a layer's
-  views (``csrc/decode_attention_q8.cu``)
-- K6 :func:`~.quant_matmul.quant_matmul_2d` (``csrc/quant_matmul.cu``;
-  ``quant_matmul_stacked`` is the same kernel on a layer's views)
+  views (``csrc/decode_attention_q8.cu``, the same split-KV pass on the
+  int8 cache)
+- K6 :func:`~.quant_matmul.quant_matmul_2d` (``csrc/quant_matmul.cu``: the
+  wgmma kernel of ``csrc/quant_wgmma.cuh`` on int8 weights for bf16 x, a
+  CUDA-core kernel for float32 x; ``quant_matmul_stacked`` is the same
+  kernel on a layer's views)
 - K7-q8 :func:`~.attention.flash_decode_attention_shared_prefix_q8` and
   :func:`~.attention.flash_decode_attention_shared_prefix_q8_stacked`
   (``csrc/decode_attention.cu``)
@@ -23,8 +27,8 @@ launches and nothing else.
   wrappers ``paged_decode_attention`` and
   ``paged_decode_attention_grouped`` (``csrc/ragged_paged_attention.cu``)
 - K10 :func:`~.quant_matmul.quant4_matmul_2d`, the packed-int4 matmul
-  (``csrc/quant4_matmul.cu`` for bf16 x, ``csrc/quant_matmul.cu`` for
-  float32 x)
+  (``csrc/quant4_matmul.cu``, the same wgmma kernel on packed weights, for
+  bf16 x; ``csrc/quant_matmul.cu`` for float32 x)
 """
 
 from llm_consensus_tpu_torch.ops.kernels.attention import (

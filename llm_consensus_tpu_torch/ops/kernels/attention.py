@@ -1,7 +1,9 @@
 """K2, K3, K7 and their int8-cache forms K4, K5, K7-q8: causal prefill,
 decode and shared-prefix decode attention — the wrappers of
-``csrc/causal_attention.cu`` and ``csrc/decode_attention.cu`` and their
-twins.
+``csrc/causal_attention.cu``, ``csrc/decode_attention.cu`` and
+``csrc/decode_attention_q8.cu`` and their twins. K3 and K4 are one
+split-KV pass (``csrc/decode_split.cuh``) on the dense and the int8 cache;
+:func:`decode_splits` picks its grid from the host-known shapes.
 
 They replace ``llm_consensus_tpu/ops/pallas/attention.py``'s
 ``flash_causal_attention``, ``flash_decode_attention``,
@@ -22,6 +24,8 @@ K4 or K7-q8 kernel on the layer's views, and counts its own launches.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from llm_consensus_tpu_torch.ops.attention import (
@@ -41,8 +45,13 @@ _MAX_THREADS = 512  # csrc/causal_attention.cu: kMaxThreads
 _TC_KEYS = 64
 _TC_STAGES = 2
 _PREFIX_SPLIT = 64  # csrc/decode_attention.cu: kSplit
-_Q8_CHUNK = 32  # csrc/decode_attention_q8.cu: kChunk, slots a stage
-_Q8_MIN_SPAN = 128  # the floor on slots a split: a chunk for each of 4 warps
+# csrc/decode_split.cuh, the split-KV pass of K3 and K4.
+_SPLIT_CHUNK = 32  # kChunk: slots a stage
+_SPLIT_MIN_SPAN = 128  # the floor on slots a split: a chunk for each of 4 warps
+_SPLIT_WARPS = 4  # kWarps
+_SPLIT_RING_BUDGET = 128 * 1024  # kRingBudget: two stages a warp fit in it
+_SM_SMEM = 233472  # shared memory of an H100 SM: 228 KB
+_BLOCK_SMEM_RESERVED = 1024  # what the card keeps of it for each resident block
 _SMS = 132  # the H100's SMs
 
 
@@ -92,26 +101,82 @@ def causal_tile_bf16(h: int, hkv: int, d: int) -> tuple[int, int]:
     return 64, _TC_STAGES * 2 * _TC_KEYS * (d + 8) * 2
 
 
-def decode_q8_splits(b: int, hkv: int, s_max: int) -> tuple[int, int]:
-    """(n_split, span) of K4's split-KV grid (Hkv, B, n_split): block z of a
-    (row, kv head) reads slots [z * span, (z + 1) * span).
+def _split_stage_bytes(elem_bytes: int, d: int) -> int:
+    """``sizeof(Stage)`` of csrc/decode_split.cuh: 32 K rows padded by 16
+    bytes, 32 V rows, and two float scales a slot (int8) or one each (the
+    dense cache), rounded up to 16 bytes."""
+    rows = _SPLIT_CHUNK * ((d * elem_bytes + 16) + d * elem_bytes)
+    scales = 2 * 4 * (_SPLIT_CHUNK if elem_bytes == 1 else 1)
+    return -(-(rows + scales) // 16) * 16
+
+
+def decode_split_smem(elem_bytes: int, d: int, g: int) -> int:
+    """Dynamic shared memory of a split-KV block (csrc/decode_split.cuh:
+    smem_bytes) for a cache of ``elem_bytes``-byte elements (1: int8, 2:
+    bf16, 4: float32): each warp's ring of two stages, or one where two
+    would pass the ring budget; q; each warp's probabilities; the ring's
+    barriers."""
+    stage = _split_stage_bytes(elem_bytes, d)
+    stages = 2 if _SPLIT_WARPS * 2 * stage <= _SPLIT_RING_BUDGET else 1
+    return (_SPLIT_WARPS * stages * stage + g * d * 4 + _SPLIT_WARPS * g * _SPLIT_CHUNK * 4
+            + _SPLIT_WARPS * stages * 8)
+
+
+@functools.lru_cache(maxsize=None)
+def decode_blocks_per_sm(elem_bytes: int, d: int, g: int) -> int:
+    """Split-KV blocks the grid aims to keep on each SM: as many as its
+    shared memory holds, at most two (two for the int8 and bf16 caches at
+    every shape, one for float32 at D = 128)."""
+    smem = decode_split_smem(elem_bytes, d, g)
+    return max(1, min(2, _SM_SMEM // (smem + _BLOCK_SMEM_RESERVED)))
+
+
+@functools.lru_cache(maxsize=None)
+def decode_splits(b: int, hkv: int, s_max: int, blocks_per_sm: int = 2) -> tuple[int, int]:
+    """(n_split, span) of the split-KV grid (Hkv, B, n_split) of K3 and K4:
+    block z of a (row, kv head) reads slots [z * span, (z + 1) * span).
 
     From the host-known shapes only: valid_len lives on the card and is
     never read here. The span is a whole number of 32-slot chunks, at least
     four (one for each of the block's warps), and short enough that the
-    grid holds two blocks for each of the H100's 132 SMs where the cache is
-    long enough; ``n_split * span >= s_max > (n_split - 1) * span``.
+    grid holds ``blocks_per_sm`` blocks (:func:`decode_blocks_per_sm`) for
+    each of the H100's 132 SMs where the cache is long enough;
+    ``n_split * span >= s_max > (n_split - 1) * span``.
     """
     s_max = max(int(s_max), 1)
-    target = -(-2 * _SMS // max(1, b * hkv))
-    span = max(_Q8_MIN_SPAN, (s_max // target) // _Q8_CHUNK * _Q8_CHUNK)
+    target = -(-blocks_per_sm * _SMS // max(1, b * hkv))
+    span = max(_SPLIT_MIN_SPAN, (s_max // target) // _SPLIT_CHUNK * _SPLIT_CHUNK)
     return -(-s_max // span), span
 
 
-def decode_q8_workspace(b: int, h: int, d: int, n_split: int) -> int:
-    """Float32 elements of K4's workspace: each split's max and sum and
-    unnormalised output for every (row, query head); none for one split."""
+def decode_workspace(b: int, h: int, d: int, n_split: int) -> int:
+    """Float32 elements of the split-KV workspace: each split's max and sum
+    and unnormalised output for every (row, query head); none for one
+    split."""
     return n_split * b * h * (d + 2) if n_split > 1 else 0
+
+
+def _launch_split(name, entry, q, cache, valid_len, dims):
+    """Launch K3 (``cache`` (k, v)) or K4 (``cache`` (k_q, k_scale, v_q,
+    v_scale)) on the card: the split from the shapes, the workspace, the C
+    entry point."""
+    b, s_max, h, hkv, d = dims
+    k, v = cache[0], cache[-2 if len(cache) == 4 else 1]
+    if k.data_ptr() % 16 or v.data_ptr() % 16:
+        raise ValueError(f"{name} needs the K and V caches 16-byte aligned")
+    n_split, span = decode_splits(
+        b, hkv, s_max, decode_blocks_per_sm(k.element_size(), d, h // hkv))
+    n_ws = decode_workspace(b, h, d, n_split)
+    ws = torch.empty(n_ws, dtype=torch.float32, device=q.device) if n_ws else None
+    out = torch.empty_like(q)
+    rc = entry(
+        q.data_ptr(), *(t.data_ptr() for t in cache), valid_len.data_ptr(), out.data_ptr(),
+        0 if ws is None else ws.data_ptr(),
+        b, s_max, h, hkv, d, n_split, span, float(d ** -0.5), _DTYPES[q.dtype],
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    build.check(rc, name)
+    return out
 
 
 def flash_causal_attention(
@@ -177,20 +242,15 @@ def flash_decode_attention(
     int32, each >= 1 (decode passes the fill length plus the new token;
     a row with none gives zeros here, where the twin averages every
     slot). Returns [B, 1, H, D] in q's dtype. CPU tensors take the plain
-    twin; CUDA tensors launch the kernel.
+    twin; CUDA tensors launch the split-KV pass (its grid from
+    :func:`decode_splits`; the caches must be 16-byte aligned, as a
+    layer's view of a stacked cache is only where its offset is).
     """
     if not q.is_cuda:
         return flash_decode_attention_plain(q, k_cache, v_cache, valid_len)
-    b, s_max, h, hkv, d = _check_decode("flash_decode_attention", q, k_cache, v_cache, valid_len)
-    lib = build.load_library()
-    out = torch.empty_like(q)
-    rc = lib.lct_decode_attention(
-        q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-        valid_len.data_ptr(), out.data_ptr(),
-        b, s_max, h, hkv, d, float(d ** -0.5), _DTYPES[q.dtype],
-        torch.cuda.current_stream(q.device).cuda_stream,
-    )
-    build.check(rc, "decode_attention")
+    dims = _check_decode("flash_decode_attention", q, k_cache, v_cache, valid_len)
+    out = _launch_split("decode_attention", build.load_library().lct_decode_attention,
+                        q, (k_cache, v_cache), valid_len, dims)
     flash_decode_attention.launches += 1
     return out
 
@@ -378,24 +438,14 @@ def _check_decode_q8(name, q, k_q, k_scale, v_q, v_scale, valid_len):
 def _launch_q8(name, q, k_q, k_scale, v_q, v_scale, valid_len, prefix_len=None):
     """Launch K4 (``prefix_len`` None) or K7-q8 on the card; the caller
     counts the launch."""
-    b, s_max, h, hkv, d = _check_decode_q8(name, q, k_q, k_scale, v_q, v_scale, valid_len)
+    dims = _check_decode_q8(name, q, k_q, k_scale, v_q, v_scale, valid_len)
     lib = build.load_library()
+    if prefix_len is None:
+        return _launch_split("decode_attention_q8", lib.lct_decode_attention_q8,
+                             q, (k_q, k_scale, v_q, v_scale), valid_len, dims)
+    b, s_max, h, hkv, d = dims
     out = torch.empty_like(q)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    if prefix_len is None:
-        if k_q.data_ptr() % 16 or v_q.data_ptr() % 16:
-            raise ValueError(f"{name} needs k_q and v_q 16-byte aligned")
-        n_split, span = decode_q8_splits(b, hkv, s_max)
-        n_ws = decode_q8_workspace(b, h, d, n_split)
-        ws = torch.empty(n_ws, dtype=torch.float32, device=q.device) if n_ws else None
-        rc = lib.lct_decode_attention_q8(
-            q.data_ptr(), k_q.data_ptr(), k_scale.data_ptr(), v_q.data_ptr(),
-            v_scale.data_ptr(), valid_len.data_ptr(), out.data_ptr(),
-            0 if ws is None else ws.data_ptr(),
-            b, s_max, h, hkv, d, n_split, span, float(d ** -0.5), _DTYPES[q.dtype], stream,
-        )
-        build.check(rc, "decode_attention_q8")
-        return out
     if not 0 <= prefix_len <= s_max:
         raise ValueError(f"prefix_len {prefix_len} outside [0, {s_max}]")
     n_split = -(-prefix_len // _PREFIX_SPLIT)

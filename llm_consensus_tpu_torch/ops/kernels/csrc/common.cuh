@@ -47,7 +47,7 @@ __device__ __forceinline__ float lct_group_sum(float v) {
 }
 
 // ---------------------------------------------------------------------------
-// Tensor-core and copy helpers (K2's bf16 form, K6 and K10).
+// Tensor-core and copy helpers (K2's bf16 form; ldmatrix also K6 and K10).
 // ---------------------------------------------------------------------------
 
 // c += a * b on the tensor cores: one mma.sync m16n8k16, bf16 A (16 x 16,
@@ -104,7 +104,7 @@ __device__ __forceinline__ void lct_cp_async4(void* dst, const void* src, bool v
 }
 
 // ---------------------------------------------------------------------------
-// mbarriers (Hopper; K4's split-KV pass and K10).
+// mbarriers (Hopper; the split-KV pass of K3 and K4, and K6 and K10).
 // ---------------------------------------------------------------------------
 
 __device__ __forceinline__ unsigned lct_smem(const void* p) {

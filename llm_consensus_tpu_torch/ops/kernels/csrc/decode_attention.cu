@@ -1,7 +1,7 @@
 // K3, K7 and K7-q8: one-token decode attention over the KV cache, plain
 // and with a prefix shared by every row, over the dense cache or over the
 // int8 cache. (K4, decode over the int8 cache without a shared prefix, is
-// the split-KV pass of decode_attention_q8.cu.)
+// decode_attention_q8.cu.)
 //
 // K3 replaces the Pallas kernel llm_consensus_tpu/ops/pallas/attention.py
 // (flash_decode_attention -> _decode_kernel). Same semantics: query head h
@@ -26,11 +26,6 @@
 // between a row program and a per-head program (_ROW_KERNEL_MAX_KV_BYTES)
 // is a VMEM budget, not semantics, and has no counterpart here.
 //
-// One code serves both caches: the kernels are templates on the cache
-// type (Dense<T>: token-major [B, S_max, Hkv, D] of T, no scales; Q8:
-// head-major int8 with a scale per slot), which says where a slot's row
-// lies and how a lane reads its share of that row.
-//
 // What bounds them on the card: bytes. K3 reads each row's valid K/V slots
 // (2 * valid_len * Hkv * D elements per row) and does ~4 * G operations per
 // element read, far below ~295 operations per byte. K7 reads the prefix
@@ -39,16 +34,35 @@
 // B * G is below a few hundred. The int8 forms read D + 4 bytes per slot
 // and head instead of 2 * D: half the bf16 cache's bytes at D = 128.
 //
-// Design of the row kernel (K3, and the suffix-and-merge pass of K7 and
-// K7-q8). One block per (batch row, kv head); its 8 warps split the row's
-// slots [lo, valid_len) round-robin, so only those are read from device memory. A
-// warp reads one slot's K and V row per step (dense: lane i holds
-// dimensions i, i + 32, ...; int8: lane i holds dimensions 4i .. 4i + 3 at
-// D = 128, one 4-byte load, and the slot's two scales) and serves all G
-// query heads of the KV head from that one read, keeping an online-softmax
-// state (max, sum, output slice) per head in registers; it loads its next
-// slot while working on the current one. The warps' partial states, and
-// for K7 the prefix partials, are merged by log-sum-exp at the end.
+// K3 is decode_split.cuh's split-KV pass on its Dense<T> layout (K4 runs
+// the same pass on the int8 cache): a grid of (Hkv, B, n_split) blocks from
+// the host-known shapes, warp-private rings of 16-byte cp.async copies on
+// mbarriers, lane-per-slot scoring of every head of the kv head from one
+// read, and a merge in split order as a programmatic dependent launch. On
+// the token-major cache a slot's row for one kv head is D * sizeof(T)
+// contiguous bytes, Hkv * D * sizeof(T) bytes from the next slot's, so each
+// lane copies its own 16-byte pieces. A bf16 stage of 32 slots is 16.9 KB
+// at D = 128 (twice the int8 one), so there a warp's ring holds one stage:
+// a block is ~70 KB, three an SM, and twelve warps an SM keep chunks in
+// flight while others score (two stages a warp, one ~135 KB block an SM,
+// timed slower). The host's split rule is K4's, two blocks for each of the
+// 132 SMs (ops/kernels/attention.py: decode_splits); a float32 cache at D =
+// 128 (one 33.3 KB stage a warp, one block an SM) aims at one. What still
+// bounds K3: each warp's chunks go load, then score, one after another; the
+// first chunk's round trip in every block; and the merge launch.
+//
+// The row kernel (the suffix-and-merge pass of K7 and K7-q8; the cache type
+// is a template, Dense<T> or Q8, which says where a slot's row lies and how
+// a lane reads its share of it). One block per (batch row, kv head); its 8
+// warps split the row's slots [lo, valid_len) round-robin, so only those
+// are read from device memory. A warp reads one slot's K and V row per
+// step (dense: lane i holds dimensions i, i + 32, ...; int8: lane i holds
+// dimensions 4i .. 4i + 3 at D = 128, one 4-byte load, and the slot's two
+// scales) and serves all G query heads of the KV head from that one read,
+// keeping an online-softmax state (max, sum, output slice) per head in
+// registers; it loads its next slot while working on the current one. The
+// warps' partial states and the prefix partials are merged by log-sum-exp
+// at the end.
 //
 // Design of K7's prefix pass. One block per (kv head, tile of 16 queries,
 // 64-slot split of the prefix). The block stages row 0's prefix K/V for the
@@ -58,11 +72,10 @@
 // over the staged slots: one lane per slot for the scores, one softmax
 // update per chunk, then the weighted sum of V. The split's (max, sum,
 // output) per query goes to a float32 workspace that the row kernel
-// merges. Split-KV for K3 (small batches on 132 SMs; K4's pass in
-// decode_attention_q8.cu) and tensor-core score tiles for K7's prefix are
-// later work.
+// merges. Moving K7's and K7-q8's row pass onto the split-KV pass, and
+// tensor-core score tiles for K7's prefix, are later work.
 
-#include "common.cuh"
+#include "decode_split.cuh"
 
 namespace {
 
@@ -564,16 +577,30 @@ RowArgs row_args(const void* q, const void* k, const void* v, const void* ks,
 
 }  // namespace
 
-// K3. q: [B, 1, H, D]; k, v: [B, S_max, Hkv, D]; valid_len: [B] int32 on
-// the card; out: [B, 1, H, D]; all contiguous. H = Hkv * G.
-extern "C" int lct_decode_attention(const void* q, const void* k,
-                                    const void* v, const void* valid_len,
-                                    void* out, int b, int s_max, int h,
-                                    int hkv, int d, float scale, int dtype,
-                                    void* stream) {
-  const RowArgs a = row_args(q, k, v, nullptr, nullptr, valid_len, out, b,
-                             s_max, hkv, scale, 0, nullptr, h);
-  return run(a, false, h, d, dtype, 0, nullptr, stream);
+// K3. q: [B, 1, H, D]; k, v: [B, S_max, Hkv, D] in q's type (float32 or
+// bfloat16, dtype), 16-byte aligned; valid_len: [B] int32 on the card; out:
+// [B, 1, H, D]; all contiguous. H = Hkv * G. The split (n_split, span) and
+// the workspace ws as K4's (decode_attention_q8.cu): span a multiple of 32,
+// n_split * span >= S_max > (n_split - 1) * span; ws, n_split > 1, a
+// float32 workspace of n_split * B * H * (D + 2) elements, else unused.
+extern "C" int lct_decode_attention(const void* q, const void* k, const void* v,
+                                    const void* valid_len, void* out, void* ws, int b,
+                                    int s_max, int h, int hkv, int d, int n_split, int span,
+                                    float scale, int dtype, void* stream) {
+  if (b <= 0) return 0;
+  kv_split::Args a;
+  if (!kv_split::make_args(a, q, k, nullptr, v, nullptr, valid_len, out, ws, b, s_max, h, hkv,
+                           n_split, span, scale)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == LCT_DTYPE_F32) {
+    return kv_split::dispatch<kv_split::Dense<float>, float>(a, h / hkv, d, st);
+  }
+  if (dtype == LCT_DTYPE_BF16) {
+    return kv_split::dispatch<kv_split::Dense<__nv_bfloat16>, __nv_bfloat16>(a, h / hkv, d, st);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 // K7. As K3, plus prefix_len (0 <= prefix_len <= S_max: slots below it are

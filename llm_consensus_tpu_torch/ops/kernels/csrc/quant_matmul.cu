@@ -21,36 +21,29 @@
 // (67 TFLOP/s in float32) the same step at M = 64 would be bound by its
 // operations, ~1.5 ms; hence the tensor cores for bf16 x.
 //
-// The tensor-core form (bf16 x; K a multiple of 128). mma.sync m16n8k16,
-// bf16 x bf16 -> float32. One block of 4 warps per (16, 32 or 64 rows of
-// M, 32 columns, part z of K). Each 128-row chunk of K is staged in shared
-// memory, x as bf16 (rows padded by 16 bytes so the A-fragment loads hit
-// distinct banks) and w as int8 (48-byte rows, likewise for the B
-// fragments), while the next chunk's loads are in flight in registers.
-// Warp v runs the chunk's k16-steps v and v + 4; each weight pair is
-// converted to bf16 as its B fragment is built and serves all of the
-// block's 16-row tiles. The 4 warps' sums are added in a fixed order
-// through shared memory. Decode's products have few 32-column tiles (16
-// for wk at M <= 16), so the wrapper cuts K into up to 16 parts until the
-// grid holds two blocks per SM; each part writes its float32 sums to a
-// workspace and split_reduce_kernel adds the parts in order, scales and
-// casts. Results do not change from run to run.
+// bf16 x (16-byte aligned, K a multiple of 128, N of 128, M <= 256) takes
+// quant_wgmma.cuh's kernel on its int8 weight format, K10's design: the
+// weights as wgmma's A operand from registers (out^T = w^T x^T), each byte
+// unpacked exactly to bf16 by two byte permutes and an add; x^T as B from a
+// 128-byte-swizzled shared-memory box; 128-column tiles, so x is read from
+// L2 once per 128 columns (at M = 64 as many bytes as the weights); a TMA
+// ring of 128-row stages (two 64-row w boxes and two x boxes) fed by one
+// producer warp; split-K reduced in rank order inside a thread-block
+// cluster, with no workspace and no second launch. Its launch comes from
+// ops/kernels/quant_matmul.py: wgmma_tile. What still bounds it is in that
+// header's note.
 //
-// The CUDA-core form (float32 x, and any bf16 x the tensor-core form does
-// not take). One block of 256 threads per (tile of up to MT = 8 rows of
-// M, 32 columns of N); blockIdx.x walks the M tiles fastest, so the blocks
-// that share a column tile run together and the weights are re-read once
-// per M tile, from L2 after the first. Each thread owns 4 neighbouring
-// columns and reads them as one 4-byte load per weight row; the block's 32
-// groups of 8 threads split K (each takes every 32nd row), in chunks of
-// 512 rows, the next chunk's loads in flight while x's chunk is staged in
-// shared memory as float. The 32 partial sums of each output are added in
-// a fixed order. Its float32 products run at the CUDA cores' rate, which
-// only the float32 reference models use.
-//
-// Later work: wgmma with TMA-fed stages for the prefill-sized products, a
-// deeper pipeline than one chunk in flight, and a fused epilogue for the
-// gate and up products.
+// The CUDA-core form (float32 x, and bf16 x that the wgmma form does not
+// take). One block of 256 threads per (tile of up to MT = 8 rows of M, 32
+// columns of N); blockIdx.x walks the M tiles fastest, so the blocks that
+// share a column tile run together and the weights are re-read once per M
+// tile, from L2 after the first. Each thread owns 4 neighbouring columns
+// and reads them as one 4-byte load per weight row; the block's 32 groups
+// of 8 threads split K (each takes every 32nd row), in chunks of 512 rows,
+// the next chunk's loads in flight while x's chunk is staged in shared
+// memory as float. The 32 partial sums of each output are added in a fixed
+// order. Its float32 products run at the CUDA cores' rate, which only the
+// float32 reference models use.
 //
 // K10: the W4A16 matmul. x [M, K] (bfloat16 or float32) times packed int4 w
 // [K/2, N]: byte (r, n) holds logical rows r (low nibble) and r + K/2 (high
@@ -72,10 +65,9 @@
 // not 16-byte aligned): it stages 256 packed rows a chunk (both halves of
 // x, 512 columns) and applies both nibbles of each 4-byte load, sign
 // extension being integer work, ((b & 0xF) ^ 8) - 8. bf16 x takes the
-// tensor-core form in quant4_matmul.cu (wgmma, TMA-fed stages, split-K
-// reduced inside a thread-block cluster).
+// wgmma kernel through quant4_matmul.cu.
 
-#include "common.cuh"
+#include "quant_wgmma.cuh"
 
 namespace {
 
@@ -282,171 +274,6 @@ __global__ void __launch_bounds__(kThreads)
   cc_store<TO, MT>(acc, smem, scale, out, m, n, m0, n0, kl, c0);
 }
 
-// ---------------------------------------------------------------------------
-// The tensor-core form (bf16 x): see the note at the top.
-// ---------------------------------------------------------------------------
-
-constexpr int kTcThreads = 128;  // 4 warps
-constexpr int kTcBN = 32;        // columns a block: 4 n-tiles of 8
-constexpr int kTcBK = 128;       // rows of K a chunk: 8 k16-steps, 2 a warp
-constexpr int kXPad = 8;         // bf16 per staged x row: spreads the banks
-constexpr int kWRow = 48;        // bytes per staged weight row (32 + 16 pad)
-
-// Two small integers as a bf16 pair (exact: |v| <= 127).
-__device__ __forceinline__ uint32_t pack_bf16(int lo, int hi) {
-  const __nv_bfloat162 h =
-      __floats2bfloat162_rn(static_cast<float>(lo), static_cast<float>(hi));
-  return *reinterpret_cast<const uint32_t*>(&h);
-}
-
-// The tensor-core forms' epilogue: the 4 warps' sums added in a fixed
-// order through shared memory (`smem`, at least 4 * BM * kTcBN floats);
-// then scale, cast, store, or (ws != nullptr) the float32 partial to
-// ws[blockIdx.z] for split_reduce_kernel.
-template <typename TO, int MI>
-__device__ __forceinline__ void tc_store(const float (&acc)[MI][4][4],
-                                         unsigned char* smem,
-                                         const float* __restrict__ scale,
-                                         TO* __restrict__ out, float* __restrict__ ws,
-                                         int m, int n, int m0, int n0) {
-  constexpr int BM = 16 * MI;
-  const int t = threadIdx.x, lane = t % 32, warp = t / 32;
-  const int g = lane / 4, tq = lane % 4;
-  __syncthreads();  // the last chunk is no longer read
-  float* red = reinterpret_cast<float*>(smem);  // [4 warps][BM][kTcBN]
-#pragma unroll
-  for (int mi = 0; mi < MI; ++mi) {
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt) {
-      float* r = red + (warp * BM + mi * 16 + g) * kTcBN + nt * 8 + 2 * tq;
-      r[0] = acc[mi][nt][0];
-      r[1] = acc[mi][nt][1];
-      r[8 * kTcBN] = acc[mi][nt][2];
-      r[8 * kTcBN + 1] = acc[mi][nt][3];
-    }
-  }
-  __syncthreads();
-  for (int idx = t; idx < BM * kTcBN; idx += kTcThreads) {
-    const int r = idx / kTcBN, c = idx % kTcBN;
-    if (m0 + r >= m) continue;
-    float sum = 0.f;
-#pragma unroll
-    for (int v = 0; v < 4; ++v) sum += red[(v * BM + r) * kTcBN + c];
-    const size_t o = (size_t)(m0 + r) * n + n0 + c;
-    if (ws) {
-      ws[(size_t)blockIdx.z * m * n + o] = sum;
-    } else {
-      out[o] = lct_from_float<TO>(sum * scale[n0 + c]);
-    }
-  }
-}
-
-// Grid (M tiles of 16 * MI rows, N / 32, splits). splits == 1: scale,
-// cast, store; else the float32 partial goes to ws[z] for
-// split_reduce_kernel.
-template <typename TO, int MI>
-__global__ void __launch_bounds__(kTcThreads)
-    quant_matmul_tc_kernel(const __nv_bfloat16* __restrict__ x,
-                           const int8_t* __restrict__ w,
-                           const float* __restrict__ scale, TO* __restrict__ out,
-                           float* __restrict__ ws, int m, int k, int n,
-                           int k_split) {
-  constexpr int BM = 16 * MI;
-  constexpr int kXRow = kTcBK + kXPad;
-  constexpr int kXVecs = BM * kTcBK / 8 / kTcThreads;   // uint4 of x a thread
-  constexpr int kWVecs = kTcBK * kTcBN / 16 / kTcThreads;  // uint4 of w: 2
-  constexpr int kStage = BM * kXRow * 2 + kTcBK * kWRow;
-  constexpr int kRed = 4 * BM * kTcBN * 4;
-  __shared__ __align__(16) unsigned char smem[kStage > kRed ? kStage : kRed];
-  __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(smem);
-  int8_t* wsm = reinterpret_cast<int8_t*>(smem + BM * kXRow * 2);
-
-  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * kTcBN;
-  const int k_lo = blockIdx.z * k_split, k_hi = min(k, k_lo + k_split);
-  const int t = threadIdx.x, lane = t % 32, warp = t / 32;
-  const int g = lane / 4, tq = lane % 4;
-
-  uint4 xr[kXVecs], wr[kWVecs];
-  auto load = [&](int k0) {
-#pragma unroll
-    for (int i = 0; i < kXVecs; ++i) {
-      const int v = t + i * kTcThreads, row = v / (kTcBK / 8), c = v % (kTcBK / 8);
-      xr[i] = m0 + row < m
-                  ? *reinterpret_cast<const uint4*>(x + (size_t)(m0 + row) * k + k0 + c * 8)
-                  : make_uint4(0, 0, 0, 0);
-    }
-#pragma unroll
-    for (int i = 0; i < kWVecs; ++i) {
-      const int v = t + i * kTcThreads, row = v / 2, c = v % 2;
-      wr[i] = *reinterpret_cast<const uint4*>(w + (size_t)(k0 + row) * n + n0 + c * 16);
-    }
-  };
-
-  float acc[MI][4][4];
-#pragma unroll
-  for (int mi = 0; mi < MI; ++mi)
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[mi][nt][e] = 0.f;
-
-  if (k_lo < k_hi) load(k_lo);
-  for (int k0 = k_lo; k0 < k_hi; k0 += kTcBK) {
-    __syncthreads();  // the previous chunk is no longer read
-#pragma unroll
-    for (int i = 0; i < kXVecs; ++i) {
-      const int v = t + i * kTcThreads, row = v / (kTcBK / 8), c = v % (kTcBK / 8);
-      *reinterpret_cast<uint4*>(xs + row * kXRow + c * 8) = xr[i];
-    }
-#pragma unroll
-    for (int i = 0; i < kWVecs; ++i) {
-      const int v = t + i * kTcThreads, row = v / 2, c = v % 2;
-      *reinterpret_cast<uint4*>(wsm + row * kWRow + c * 16) = wr[i];
-    }
-    __syncthreads();
-    if (k0 + kTcBK < k_hi) load(k0 + kTcBK);
-
-#pragma unroll
-    for (int step = warp; step < kTcBK / 16; step += 4) {
-      const int kb = step * 16;
-      uint32_t a[MI][4];
-#pragma unroll
-      for (int mi = 0; mi < MI; ++mi) {
-        const __nv_bfloat16* r0 = xs + (mi * 16 + g) * kXRow + kb + 2 * tq;
-        const __nv_bfloat16* r8 = r0 + 8 * kXRow;
-        a[mi][0] = *reinterpret_cast<const uint32_t*>(r0);
-        a[mi][1] = *reinterpret_cast<const uint32_t*>(r8);
-        a[mi][2] = *reinterpret_cast<const uint32_t*>(r0 + 8);
-        a[mi][3] = *reinterpret_cast<const uint32_t*>(r8 + 8);
-      }
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt) {
-        const int8_t* wc = wsm + (kb + 2 * tq) * kWRow + nt * 8 + g;
-        const uint32_t b0 = pack_bf16(wc[0], wc[kWRow]);
-        const uint32_t b1 = pack_bf16(wc[8 * kWRow], wc[9 * kWRow]);
-#pragma unroll
-        for (int mi = 0; mi < MI; ++mi) lct_mma_bf16(acc[mi][nt], a[mi], b0, b1);
-      }
-    }
-  }
-
-  tc_store<TO, MI>(acc, smem, scale, out, ws, m, n, m0, n0);
-}
-
-// out = cast(scale * (sum over z of ws[z])), z in order.
-template <typename TO>
-__global__ void split_reduce_kernel(const float* __restrict__ ws,
-                                    const float* __restrict__ scale,
-                                    TO* __restrict__ out, int m, int n,
-                                    int splits) {
-  const size_t mn = (size_t)m * n;
-  const size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= mn) return;
-  float sum = 0.f;
-  for (int z = 0; z < splits; ++z) sum += ws[z * mn + idx];
-  out[idx] = lct_from_float<TO>(sum * scale[idx % n]);
-}
-
 // K6's (kInt4 false) or K10's (true) CUDA-core kernels; k is the logical
 // contraction dim for both.
 template <bool kInt4, typename TX, typename TO, int MT>
@@ -456,29 +283,6 @@ auto cc_kernel() {
   } else {
     return quant_matmul_kernel<TX, TO, MT>;
   }
-}
-
-// K6's tensor-core kernel; the kernel takes the rows of w a part covers.
-template <typename TO>
-int launch_tc(const void* x, const void* w, const void* scale, void* out,
-              float* ws, int m, int k, int n, int splits, cudaStream_t st) {
-  const __nv_bfloat16* xp = static_cast<const __nv_bfloat16*>(x);
-  const int8_t* wp = static_cast<const int8_t*>(w);
-  const float* sp = static_cast<const float*>(scale);
-  TO* op = static_cast<TO*>(out);
-  float* wsp = splits > 1 ? ws : nullptr;
-  const int mi = m <= 16 ? 1 : m <= 32 ? 2 : 4;
-  const dim3 grid((m + 16 * mi - 1) / (16 * mi), n / kTcBN, splits);
-  const int rows_split = k / splits;
-  const auto kernel = mi == 1   ? quant_matmul_tc_kernel<TO, 1>
-                      : mi == 2 ? quant_matmul_tc_kernel<TO, 2>
-                                : quant_matmul_tc_kernel<TO, 4>;
-  kernel<<<grid, kTcThreads, 0, st>>>(xp, wp, sp, op, wsp, m, k, n, rows_split);
-  if (splits > 1) {
-    const size_t mn = (size_t)m * n;
-    split_reduce_kernel<TO><<<(unsigned)((mn + 255) / 256), 256, 0, st>>>(ws, sp, op, m, n, splits);
-  }
-  return 0;
 }
 
 template <bool kInt4, typename TX, typename TO>
@@ -499,20 +303,8 @@ int launch(const void* x, const void* w, const void* scale, void* out, int m,
 }
 
 template <bool kInt4, typename TX>
-int launch_x(const void* x, const void* w, const void* scale, void* out,
-             float* ws, int m, int k, int n, int out_dtype, int splits,
-             cudaStream_t st) {
-  if constexpr (sizeof(TX) == 2 && !kInt4) {
-    if (splits > 0) {
-      if (out_dtype == LCT_DTYPE_F32) {
-        return launch_tc<float>(x, w, scale, out, ws, m, k, n, splits, st);
-      }
-      if (out_dtype == LCT_DTYPE_BF16) {
-        return launch_tc<__nv_bfloat16>(x, w, scale, out, ws, m, k, n, splits, st);
-      }
-      return (int)cudaErrorInvalidValue;
-    }
-  }
+int launch_x(const void* x, const void* w, const void* scale, void* out, int m, int k, int n,
+             int out_dtype, cudaStream_t st) {
   if (out_dtype == LCT_DTYPE_F32) return launch<kInt4, TX, float>(x, w, scale, out, m, k, n, st);
   if (out_dtype == LCT_DTYPE_BF16) {
     return launch<kInt4, TX, __nv_bfloat16>(x, w, scale, out, m, k, n, st);
@@ -521,22 +313,16 @@ int launch_x(const void* x, const void* w, const void* scale, void* out,
 }
 
 template <bool kInt4>
-int dispatch(const void* x, const void* w, const void* scale, void* out, void* ws,
-             int m, int k, int n, int x_dtype, int out_dtype, int splits,
-             void* stream) {
+int dispatch(const void* x, const void* w, const void* scale, void* out, int m, int k, int n,
+             int x_dtype, int out_dtype, void* stream) {
   if (m <= 0 || n <= 0) return 0;
   if (n % kTileN || k <= 0 || (kInt4 && k % 2)) return (int)cudaErrorInvalidValue;
-  if (splits > 0 && (kInt4 || x_dtype != LCT_DTYPE_BF16 || k % (kTcBK * splits) ||
-                     (splits > 1 && !ws))) {
-    return (int)cudaErrorInvalidValue;
-  }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  float* wsp = static_cast<float*>(ws);
   int rc;
   if (x_dtype == LCT_DTYPE_F32) {
-    rc = launch_x<kInt4, float>(x, w, scale, out, wsp, m, k, n, out_dtype, 0, st);
+    rc = launch_x<kInt4, float>(x, w, scale, out, m, k, n, out_dtype, st);
   } else if (x_dtype == LCT_DTYPE_BF16) {
-    rc = launch_x<kInt4, __nv_bfloat16>(x, w, scale, out, wsp, m, k, n, out_dtype, splits, st);
+    rc = launch_x<kInt4, __nv_bfloat16>(x, w, scale, out, m, k, n, out_dtype, st);
   } else {
     rc = (int)cudaErrorInvalidValue;
   }
@@ -546,28 +332,28 @@ int dispatch(const void* x, const void* w, const void* scale, void* out, void* w
 
 }  // namespace
 
-// x: [M, K] float32 or bfloat16 (x_dtype); w: [K, N] int8; scale: [N]
-// float32; out: [M, N] float32 or bfloat16 (out_dtype); all contiguous on
-// the card. N must be a multiple of 32. splits > 0 (bf16 x only; K a
-// multiple of 128 * splits, x 16-byte aligned) selects the tensor-core
-// kernel with K cut into `splits` parts; ws is then a float32 workspace of
-// splits * M * N elements when splits > 1. splits == 0: the CUDA-core
-// kernel.
-extern "C" int lct_quant_matmul(const void* x, const void* w,
-                                const void* scale, void* out, void* ws,
-                                int m, int k, int n, int x_dtype,
-                                int out_dtype, int splits, void* stream) {
-  return dispatch<false>(x, w, scale, out, ws, m, k, n, x_dtype, out_dtype,
-                         splits, stream);
+// The CUDA-core forms. x: [M, K] float32 or bfloat16 (x_dtype); w: [K, N]
+// int8 (K6) or the packed int4 [K/2, N] (K10; K even, the logical
+// contraction dim); scale: [N] float32; out: [M, N] float32 or bfloat16
+// (out_dtype); all contiguous on the card. N must be a multiple of 32.
+extern "C" int lct_quant_matmul(const void* x, const void* w, const void* scale, void* out,
+                                int m, int k, int n, int x_dtype, int out_dtype, void* stream) {
+  return dispatch<false>(x, w, scale, out, m, k, n, x_dtype, out_dtype, stream);
 }
 
-// K10's CUDA-core form: as lct_quant_matmul with splits == 0 (the only
-// value it takes), w the packed int4 [K/2, N] (K even, the logical
-// contraction dim). bf16 x takes lct_quant4_matmul_wg (quant4_matmul.cu).
-extern "C" int lct_quant4_matmul(const void* x, const void* w,
-                                 const void* scale, void* out, void* ws,
-                                 int m, int k, int n, int x_dtype,
-                                 int out_dtype, int splits, void* stream) {
-  return dispatch<true>(x, w, scale, out, ws, m, k, n, x_dtype, out_dtype,
-                        splits, stream);
+extern "C" int lct_quant4_matmul(const void* x, const void* w, const void* scale, void* out,
+                                 int m, int k, int n, int x_dtype, int out_dtype, void* stream) {
+  return dispatch<true>(x, w, scale, out, m, k, n, x_dtype, out_dtype, stream);
+}
+
+// K6 for bf16 x on the tensor cores: x [M, K] bf16, 16-byte aligned; w [K, N]
+// int8, 16-byte aligned; scale [N] float32; out [M, N] float32 or bfloat16
+// (out_dtype); all contiguous on the card. N a multiple of 128. The launch
+// (ops/kernels/quant_matmul.py: wgmma_tile): mp in {8, 16, 32, 64, 96,
+// 128, 192, 256} with M <= mp; splits in {1, 2, 4, 8} with K a multiple of
+// 128 * splits; 2 <= stages <= 8.
+extern "C" int lct_quant_matmul_wg(const void* x, const void* w, const void* scale, void* out,
+                                   int m, int k, int n, int out_dtype, int mp, int splits,
+                                   int stages, void* stream) {
+  return wgmma::run<false>(x, w, scale, out, m, k, n, out_dtype, mp, splits, stages, stream);
 }

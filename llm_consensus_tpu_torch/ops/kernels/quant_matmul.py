@@ -1,5 +1,5 @@
 """K6, the W8A16 matmul, and K10, the W4A16 matmul: the wrappers of
-``csrc/quant_matmul.cu`` and their twins.
+``csrc/quant_matmul.cu`` and ``csrc/quant4_matmul.cu`` and their twins.
 
 Replaces ``llm_consensus_tpu/ops/pallas/quant_matmul.py``'s
 ``quant_matmul_2d`` (``_qmm_kernel``) and ``quant_matmul_stacked``
@@ -11,34 +11,35 @@ kernel on that view. The source note of ``csrc/quant_matmul.cu`` says what
 bounds it on the card and what its design does about that.
 
 ``x`` may be bfloat16 or float32. For bf16 the kernel computes what
-``_qmm_kernel`` computes, on the tensor cores (``mma.sync``), with K cut
-into parts when the product has too few column tiles to fill the card
-(:func:`tensor_core_splits`). Pallas casts every ``x`` to bf16 first; a
-float32 ``x`` stays float32 here, on the CUDA cores, which is what the
-JAX package computes wherever its kernel is off (every CPU run included).
+``_qmm_kernel`` computes, on the tensor cores: the wgmma kernel of
+``csrc/quant_wgmma.cuh`` (its launch from :func:`wgmma_tile`; split-K
+reduced inside a thread-block cluster, no workspace). Pallas casts every
+``x`` to bf16 first; a float32 ``x`` stays float32 here, on the CUDA
+cores, which is what the JAX package computes wherever its kernel is off
+(every CPU run included).
 
 K10 replaces ``quant_matmul.py``'s ``quant4_matmul_2d`` (``_q4mm_kernel``):
 ``x [M, K]`` times the packed int4 ``w_q [K/2, N]`` (int8 bytes; the low
 nibble holds logical row ``r``, the high nibble row ``r + K/2``, both
 sign-extended), the same float32 sums, scale and cast. bf16 ``x`` takes
-the wgmma form of ``csrc/quant4_matmul.cu`` (its launch from
-:func:`quant4_tile`; split-K reduced inside a thread-block cluster, no
-workspace), float32 ``x`` the CUDA-core form of ``csrc/quant_matmul.cu``.
-It takes every product that :func:`quant4_matmul_supported` accepts.
+the same wgmma kernel on the packed format, float32 ``x`` the CUDA-core
+form of ``csrc/quant_matmul.cu``. Each takes every product that its shape
+rule (:func:`quant_matmul_supported`, :func:`quant4_matmul_supported`)
+accepts with bf16 ``x``; a bf16 ``x`` that is not 16-byte aligned takes
+the CUDA-core form.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
 from llm_consensus_tpu_torch.ops.kernels import build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_TILE_N = 32  # csrc/quant_matmul.cu: kTileN (and kTcBN)
-_TC_BK = 128  # csrc/quant_matmul.cu: kTcBK
+_TILE_N = 32  # csrc/quant_matmul.cu: kTileN, the CUDA-core forms' columns a block
 _SMS = 132  # the H100's SMs
-_MIN_BLOCKS = 2 * _SMS  # two blocks for each of them
-_MAX_SPLITS = 16
 
 # The JAX package's shape rule (ops/pallas/quant_matmul.py), kept as it is
 # so that both packages send the same products to the kernel: small M (the
@@ -99,74 +100,67 @@ def quant4_matmul_supported(m: int, k: int, n: int) -> bool:
     )
 
 
-def tensor_core_splits(m: int, k: int, n: int) -> int:
-    """How many parts the tensor-core kernel cuts K into: doubled while
-    the grid holds fewer than two blocks per SM and each part stays a
-    whole number of 128-row chunks (decode's narrow products would
-    otherwise leave most SMs idle). ``k`` is the logical contraction dim
-    for K10 too, whose chunk is 64 packed rows (128 logical rows)."""
-    bm = 16 if m <= 16 else 32 if m <= 32 else 64
-    blocks = -(-m // bm) * (n // _TILE_N)
-    chunks = k // _TC_BK
-    splits = 1
-    while blocks * splits < _MIN_BLOCKS and chunks % (2 * splits) == 0 and splits < _MAX_SPLITS:
-        splits *= 2
-    return splits
+# csrc/quant_wgmma.cuh, the wgmma form of K6 and K10 for bf16 x.
+_WG_MPS = (8, 16, 32, 64, 96, 128, 192, 256)  # x's rows padded to wgmma's N
+_WG_BOX_ROWS = 64  # kRows: rows of a w box (64 x 128 bytes)
+_WG_STAGE_K = 128  # logical rows of K a stage: one int4 box, two int8 boxes
+_WG_BN = 128  # kBN: columns a block
+_WG_MAX_CLUSTER = 8  # the portable cluster size
+_WG_MAX_STAGES = 8  # kMaxStages
+_WG_RING_TARGET = 96 * 1024  # bytes of ring the stage count aims at: two blocks an SM
+_WG_WIDE_BLOCKS = 64  # the grid's block target above mp = 32
+_MAX_BLOCK_SMEM = 232448  # the H100's dynamic shared memory a block: 227 KB
 
 
-# csrc/quant4_matmul.cu, K10's wgmma form for bf16 x.
-_Q4_MPS = (8, 16, 32, 64, 96, 128, 192, 256)  # x's rows padded to wgmma's N
-_Q4_ROWS = 64  # kRows: packed rows a stage
-_Q4_BN = 128  # kBN: columns a block
-_Q4_MAX_CLUSTER = 8  # the portable cluster size
-_Q4_MAX_STAGES = 8  # kMaxStages
-_Q4_RING_TARGET = 96 * 1024  # bytes of ring the stage count aims at: two blocks an SM
-_Q4_WIDE_BLOCKS = 64  # the grid's block target above mp = 32
+def _wg_stage_bytes(mp: int, packed: bool) -> int:
+    """A stage: its 64-row x 128-column boxes of w (one of packed int4
+    rows, two of int8 rows) and the two x boxes they meet (mp rows x 128
+    bytes each)."""
+    return (1 if packed else 2) * _WG_BOX_ROWS * _WG_BN + 2 * mp * 128
 
 
-def _q4_stage_bytes(mp: int) -> int:
-    """A stage: a 64-row x 128-column box of w and the two x boxes it meets
-    (mp rows x 128 bytes each)."""
-    return _Q4_ROWS * _Q4_BN + 2 * mp * 128
-
-
-def quant4_smem_bytes(mp: int, stages: int) -> int:
-    """csrc/quant4_matmul.cu's smem_bytes: the ring, which the float32
+def wgmma_smem_bytes(mp: int, stages: int, packed: bool) -> int:
+    """csrc/quant_wgmma.cuh's smem_bytes: the ring, which the float32
     partial tile [mp, 128 + 8] reuses at the end, then 16 barriers."""
-    return max(stages * _q4_stage_bytes(mp), mp * (_Q4_BN + 8) * 4) + 2 * _Q4_MAX_STAGES * 8
+    ring = stages * _wg_stage_bytes(mp, packed)
+    return max(ring, mp * (_WG_BN + 8) * 4) + 2 * _WG_MAX_STAGES * 8
 
 
-def quant4_tile(m: int, k: int, n: int) -> dict:
-    """The launch of K10's wgmma form (bf16 x) for ``x [m, k] @ w [k/2, n]``
-    (``k`` the logical contraction dim), the counterpart of
-    :func:`tensor_core_splits`.
+@functools.lru_cache(maxsize=None)
+def wgmma_tile(m: int, k: int, n: int, packed: bool) -> dict:
+    """The launch of the wgmma form (bf16 x) of K10 (``packed``: ``x [m, k]
+    @ w [k/2, n]``) or K6 (``x [m, k] @ w [k, n]``), ``k`` the logical
+    contraction dim.
 
     - ``mp``: x's rows padded to wgmma's N (8, 16, 32, 64, 96, 128, 192
       or 256);
-    - ``splits``: K/2's packed rows cut into that many parts of whole
-      64-row stages, one block each, forming one thread-block cluster per
-      128-column tile (at most 8); the cluster adds the parts inside the
-      launch. Doubled while the grid has fewer blocks than the H100's 132
-      SMs at mp <= 32, where a block's products are small and more blocks
-      keep more bytes in flight; above, fewer than 64 blocks: each part's
-      partial tile (mp x 128 floats) crosses distributed shared memory, and
-      on the H100 64 blocks timed faster there than 128 or more (PERF.md
-      §6, run 7G);
-    - ``stages``: the ring's depth (3-8, about 96 KB of ring);
+    - ``splits``: K cut into that many parts of whole 128-row stages, one
+      block each, forming one thread-block cluster per 128-column tile (at
+      most 8); the cluster adds the parts inside the launch. Doubled while
+      the grid has fewer blocks than the H100's 132 SMs at mp <= 32, where
+      a block's products are small and more blocks keep more bytes in
+      flight; above, fewer than 64 blocks: each part's partial tile (mp x
+      128 floats) crosses distributed shared memory, and on the H100 64
+      blocks timed faster there than 128 or more (PERF.md §6);
+    - ``stages``: the ring's depth (3-8, about 96 KB of ring; 2 where
+      three would pass the block's 227 KB);
     - ``smem``: dynamic shared memory a block; ``grid``: (splits, n / 128).
     """
-    if m < 1 or m > _Q4_MPS[-1] or n % _Q4_BN or k % 2 or (k // 2) % _Q4_ROWS:
-        raise ValueError(f"quant4_matmul_2d: no wgmma tile for x [{m}, {k}] @ w [{k // 2}, {n}]")
-    mp = next(p for p in _Q4_MPS if p >= m)
-    k2, tiles = k // 2, n // _Q4_BN
-    target = _SMS if mp <= 32 else _Q4_WIDE_BLOCKS
+    if m < 1 or m > _WG_MPS[-1] or n % _WG_BN or k % _WG_STAGE_K:
+        w = f"[{k // 2}, {n}] (packed)" if packed else f"[{k}, {n}]"
+        raise ValueError(f"no wgmma tile for x [{m}, {k}] @ w {w}")
+    mp = next(p for p in _WG_MPS if p >= m)
+    stages_k, tiles = k // _WG_STAGE_K, n // _WG_BN
+    target = _SMS if mp <= 32 else _WG_WIDE_BLOCKS
     splits = 1
-    while (tiles * splits < target and splits < _Q4_MAX_CLUSTER
-           and k2 % (2 * splits * _Q4_ROWS) == 0):
+    while (tiles * splits < target and splits < _WG_MAX_CLUSTER
+           and stages_k % (2 * splits) == 0):
         splits *= 2
-    stages = max(3, min(_Q4_MAX_STAGES, _Q4_RING_TARGET // _q4_stage_bytes(mp)))
-    return dict(mp=mp, splits=splits, rows=k2 // splits, stages=stages,
-                smem=quant4_smem_bytes(mp, stages), grid=(splits, tiles))
+    stages = max(3, min(_WG_MAX_STAGES, _WG_RING_TARGET // _wg_stage_bytes(mp, packed)))
+    while stages > 2 and wgmma_smem_bytes(mp, stages, packed) > _MAX_BLOCK_SMEM:
+        stages -= 1  # int8 at mp = 256: three 80 KB stages would pass the block's limit
+    return dict(mp=mp, splits=splits, stages=stages, stages_per_block=stages_k // splits,
+                smem=wgmma_smem_bytes(mp, stages, packed), grid=(splits, tiles))
 
 
 def quant_matmul_2d_plain(
@@ -212,32 +206,23 @@ def _launch(name: str, x, w_q, scale, out_dtype, packed: bool) -> torch.Tensor:
     lib = build.load_library()
     out = torch.empty((m, n), dtype=out_dtype, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    tc = x.dtype == torch.bfloat16 and k % _TC_BK == 0 and x.data_ptr() % 16 == 0
-    if packed and tc and m <= _MAX_M and n % 128 == 0:
-        # K10's wgmma form; its TMA tensor maps need w (and x) 16-byte aligned.
+    if (x.dtype == torch.bfloat16 and x.data_ptr() % 16 == 0 and m <= _MAX_M
+            and k % _WG_STAGE_K == 0 and n % _WG_BN == 0):
+        # The wgmma form; its TMA tensor maps need w (and x) 16-byte aligned.
         if w_q.data_ptr() % 16:
             raise ValueError(f"{name} needs w_q 16-byte aligned")
-        t = quant4_tile(m, k, n)
-        rc = lib.lct_quant4_matmul_wg(
+        t = wgmma_tile(m, k, n, packed)
+        entry = lib.lct_quant4_matmul_wg if packed else lib.lct_quant_matmul_wg
+        rc = entry(
             x.data_ptr(), w_q.data_ptr(), scale.data_ptr(), out.data_ptr(),
             m, k, n, _DTYPES[out_dtype], t["mp"], t["splits"], t["stages"], stream,
         )
-        build.check(rc, name)
-        return out
-    # bf16 x takes the tensor-core kernel (K in whole 128-row chunks, x
-    # 16-byte aligned for its vector loads); float32 x the CUDA-core one.
-    splits = 0
-    ws = None
-    if tc and not packed:
-        splits = tensor_core_splits(m, k, n)
-        if splits > 1:
-            ws = torch.empty((splits, m, n), dtype=torch.float32, device=x.device)
-    entry = lib.lct_quant4_matmul if packed else lib.lct_quant_matmul
-    rc = entry(
-        x.data_ptr(), w_q.data_ptr(), scale.data_ptr(), out.data_ptr(),
-        0 if ws is None else ws.data_ptr(),
-        m, k, n, _DTYPES[x.dtype], _DTYPES[out_dtype], splits, stream,
-    )
+    else:  # float32 x (or a bf16 x the wgmma form does not take): the CUDA cores
+        entry = lib.lct_quant4_matmul if packed else lib.lct_quant_matmul
+        rc = entry(
+            x.data_ptr(), w_q.data_ptr(), scale.data_ptr(), out.data_ptr(),
+            m, k, n, _DTYPES[x.dtype], _DTYPES[out_dtype], stream,
+        )
     build.check(rc, name)
     return out
 

@@ -17,14 +17,20 @@ llama-1b with random weights from seed 0 (``chip_smoke.build_engine``):
   kernels and, in a tree that has it, the split-K reduce) and of the
   int8-cache decode attention (K4, and K7-q8, which the fan-out runs), each
   the kernels' summed device time over the wrapper's launch count;
+- the same fan-out on int8 weights with the int8 KV cache: its wall and
+  K6's device ms per call (the int8 matmul's kernels, and the older
+  tensor-core form's split-K reduce in a tree that has it);
 - on int8 weights with the int8 KV cache, one consensus question
   (``chip_smoke.run_consensus``: default panel, cap 2, 64 new tokens), where
   K4 decodes: its seconds unprofiled, then K4's device ms per launch from a
   profiled repeat;
+- the same question on bf16 weights with the bf16 cache, where K3 decodes:
+  its seconds, then K3's device ms per launch from a profiled repeat;
 - the host's cost of one wrapper call, enqueue only (the card is not
-  waited on inside the timed loop, and runs behind the host): K4 on the
-  panel's decode (q [4, 1, 16, 128], int8 cache [4, 8, 2176, 128]) and
-  K10 on llama-1b's w_gate at M = 64, ``HOST_CALLS`` calls each.
+  waited on inside the timed loop, and runs behind the host): K3 and K4 on
+  the panel's decode (q [4, 1, 16, 128], cache [4, 2176, 8, 128] bf16 and
+  [4, 8, 2176, 128] int8), K6 and K10 on llama-1b's w_gate at M = 64,
+  ``HOST_CALLS`` calls each.
 
 Prints one JSON line per tree, then the card's name and power limit. Give
 two trees as A B B A to compare them in one call: the host's speed moves
@@ -43,13 +49,25 @@ from pathlib import Path
 N = 64
 NEW_TOKENS = 32
 HOST_CALLS = 200
-# Kernel names (substrings) by role. K10: the wgmma kernel, the older
-# tensor-core kernel and its split-K reduce (K6 is not launched on int4
-# weights). K4: the split-KV pass and its merge, or the older row kernel
-# on the int8 cache, which K7-q8's row pass shares (its launches are
-# printed beside).
-K10_NAMES = ("quant4_wgmma_kernel", "quant4_matmul_tc_kernel", "split_reduce_kernel")
-K4_NAMES = ("decode_q8_split_kernel", "decode_q8_merge_kernel", "decode_row_kernel<(anonymous namespace)::Q8")
+# Kernel names (substrings) by role, the names of earlier trees kept so that
+# a parent is still counted. K10: the wgmma kernel on packed weights (named
+# quant4_wgmma_kernel before K6 shared it), the older tensor-core kernel and
+# its split-K reduce (K6 is not launched on int4 weights). K6: the wgmma
+# kernel on int8 weights, or the older mma.sync kernel and its split-K
+# reduce (K10 is not launched on int8 weights). K4: the split-KV pass on the
+# int8 cache and its merge (named decode_q8_* before K3 shared them), or the
+# older row kernel on the int8 cache, which K7-q8's row pass shares (its
+# launches are printed beside). K3: the split-KV pass on the dense cache and
+# its merge, or the older row kernel on the dense cache (the bf16 question
+# runs no K4 and no K7, so the shared names count K3 alone there).
+K10_NAMES = ("quant_wgmma_kernel<true", "quant4_wgmma_kernel", "quant4_matmul_tc_kernel",
+             "split_reduce_kernel")
+K6_NAMES = ("quant_wgmma_kernel<false", "quant_matmul_tc_kernel", "split_reduce_kernel")
+K4_NAMES = ("decode_split_kernel<(anonymous namespace)::kv_split::Q8", "decode_merge_kernel",
+            "decode_q8_split_kernel", "decode_q8_merge_kernel",
+            "decode_row_kernel<(anonymous namespace)::Q8")
+K3_NAMES = ("decode_split_kernel<(anonymous namespace)::kv_split::Dense", "decode_merge_kernel",
+            "decode_row_kernel<(anonymous namespace)::Dense")
 K7Q8_PREFIX = "prefix_kernel<(anonymous namespace)::Q8"
 
 
@@ -84,25 +102,33 @@ def host_us_per_call(torch, fn) -> float:
 
 
 def wrapper_host_costs(torch, cfg) -> dict:
-    """K4 at the panel's decode and K10 at w_gate, M = 64 (random data)."""
+    """K3 and K4 at the panel's decode, K6 and K10 at w_gate, M = 64 (random
+    data)."""
     from llm_consensus_tpu_torch.models.cache import quantize_kv
     from llm_consensus_tpu_torch.ops.kernels import attention as ka
     from llm_consensus_tpu_torch.ops.kernels import quant_matmul as kq
-    from llm_consensus_tpu_torch.ops.quant import quantize_tensor4
+    from llm_consensus_tpu_torch.ops.quant import quantize_tensor, quantize_tensor4
 
     g = torch.Generator(device="cuda").manual_seed(0)
     h, hkv, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     q = torch.randn(4, 1, h, d, generator=g, device="cuda").to(torch.bfloat16)
     (kq_, ks), (vq_, vs) = (quantize_kv(torch.randn(4, hkv, 2176, d, generator=g, device="cuda"))
                             for _ in range(2))
+    kc, vc = (torch.randn(4, 2176, hkv, d, generator=g, device="cuda").to(torch.bfloat16)
+              for _ in range(2))
     vl = torch.full((4,), 2100, dtype=torch.int32, device="cuda")
     x = torch.randn(64, cfg.d_model, generator=g, device="cuda").to(torch.bfloat16)
-    w = quantize_tensor4(torch.randn(cfg.d_model, cfg.d_ff, generator=g, device="cuda") * 0.02, 0)
+    w_gate = torch.randn(cfg.d_model, cfg.d_ff, generator=g, device="cuda") * 0.02
+    w4, w8 = quantize_tensor4(w_gate, 0), quantize_tensor(w_gate, 0)
     return {
+        "k3_host_us_per_call": host_us_per_call(
+            torch, lambda: ka.flash_decode_attention(q, kc, vc, vl)),
         "k4_host_us_per_call": host_us_per_call(
             torch, lambda: ka.flash_decode_attention_q8(q, kq_, ks, vq_, vs, vl)),
+        "k6_host_us_per_call": host_us_per_call(
+            torch, lambda: kq.quant_matmul_2d(x, w8.q, w8.scale)),
         "k10_host_us_per_call": host_us_per_call(
-            torch, lambda: kq.quant4_matmul_2d(x, w.q, w.scale)),
+            torch, lambda: kq.quant4_matmul_2d(x, w4.q, w4.scale)),
     }
 
 
@@ -151,25 +177,48 @@ def child(tree: str) -> None:
     del engine
     torch.cuda.empty_cache()
 
-    engine = chip_smoke.build_engine(torch, cfg, quant="int8", kv_quant=True)
-    engine.generate_texts(["warm-up"], max_new_tokens=4)
-    kernels.reset_launch_counts()
+    engine = chip_smoke.build_engine(torch, cfg, NEW_TOKENS, quant="int8", kv_quant=True)
+    fan_out()  # warm-up
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    chip_smoke.run_consensus(LocalBackend(engine))
+    fan_out()
     torch.cuda.synchronize()
-    question_s = time.perf_counter() - t0
-    k4 = kernels.flash_decode_attention_q8.launches
-    k7q8 = kernels.flash_decode_attention_shared_prefix_q8.launches
+    wall = time.perf_counter() - t0
     kernels.reset_launch_counts()
-    _, by_name = device_ms(torch, lambda: chip_smoke.run_consensus(LocalBackend(engine)))
-    out["int8_question"] = {
-        "seconds": question_s, "k4_launches": k4, "k7q8_launches": k7q8,
-        "k4_device_ms_per_call": summed(by_name, K4_NAMES)
-        / max(kernels.flash_decode_attention_q8.launches, 1),
-        "profiled_k4_launches": kernels.flash_decode_attention_q8.launches,
-        "profiled_k7q8_launches": kernels.flash_decode_attention_shared_prefix_q8.launches,
+    _, by_name = device_ms(torch, fan_out)
+    k6 = kernels.quant_matmul_2d.launches
+    out["int8_fan_out"] = {
+        "n": N, "new_tokens": NEW_TOKENS, "wall_s": wall, "wall_ms_per_step": wall * 1e3 / NEW_TOKENS,
+        "k6_launches": k6, "k6_device_ms_per_call": summed(by_name, K6_NAMES) / max(k6, 1),
+        "device_busy_ms": sum(by_name.values()),
     }
+    del engine
+    torch.cuda.empty_cache()
+
+    for label, quant, kv_quant, wrapper, names in (
+            ("int8_question", "int8", True, kernels.flash_decode_attention_q8, K4_NAMES),
+            ("bf16_question", "none", False, kernels.flash_decode_attention, K3_NAMES)):
+        engine = chip_smoke.build_engine(torch, cfg, quant=quant, kv_quant=kv_quant)
+        engine.generate_texts(["warm-up"], max_new_tokens=4)
+        kernels.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        chip_smoke.run_consensus(LocalBackend(engine))
+        torch.cuda.synchronize()
+        question_s = time.perf_counter() - t0
+        launches = wrapper.launches
+        kernels.reset_launch_counts()
+        _, by_name = device_ms(torch, lambda: chip_smoke.run_consensus(LocalBackend(engine)))
+        key = "k4" if wrapper is kernels.flash_decode_attention_q8 else "k3"
+        out[label] = {
+            "seconds": question_s, f"{key}_launches": launches,
+            f"{key}_device_ms_per_call": summed(by_name, names) / max(wrapper.launches, 1),
+            f"profiled_{key}_launches": wrapper.launches,
+            "profiled_k7_launches": kernels.flash_decode_attention_shared_prefix.launches,
+            "profiled_k7q8_launches": kernels.flash_decode_attention_shared_prefix_q8.launches,
+        }
+        del engine
+        torch.cuda.empty_cache()
     print(json.dumps(out), flush=True)
 
 

@@ -1,17 +1,23 @@
 #!/usr/bin/env python3
-"""K10's launch on the card: device ms of the wgmma kernel for every split
-count (and the padded M, where the rule's differs from the power of two
-above M), with bf16 ``x @ w`` (cuBLAS) beside and the rule's choice.
+"""Launch sweeps on the card. The wgmma launch of K10 (``int4`` weights) and
+K6 (``int8``): device ms of the kernel for every split count (and the
+padded M, where the rule's differs from the power of two above M), with
+bf16 ``x @ w`` (cuBLAS) beside and the rule's choice. The split-KV grid of
+K3 (``k3``, bf16 dense cache): device ms for each span, with
+``scaled_dot_product_attention`` beside and the rule's choice.
 
-    python3 scripts/torch_k10_sweep.py
+    python3 scripts/torch_k10_sweep.py [int4|int8|k3 ...]
 
-Random packed int4 weights and bf16 x from a fixed seed, at llama-1b's
-projection shapes for the engine's and the serving path's M, and one M
-between 128 and 256. Times with ``chip_smoke.Timer`` (CUDA events, L2
-flushed, a spin kernel queued first). Calls the C entry point directly
-with the launch under test, so a new rule for ``quant4_tile`` can be
-read off one run. Prints one line per shape, then the card's name and
-power limit. Needs a CUDA card.
+Random weights, caches and bf16 inputs from a fixed seed: the matmuls at
+llama-1b's projection shapes for the engine's and the serving path's M,
+and one M between 128 and 256; K3 at llama-1b's heads (16 / 8 / 128) on
+the panel's decode (4 rows, 2176 slots), the reported case (8 rows, 384),
+one row over 2176 and 64 rows over 256. All three unless named. Times with
+``chip_smoke.Timer`` (CUDA events, L2 flushed, a spin kernel queued
+first). Calls the C entry points directly with the launch under test, so
+a new rule for ``wgmma_tile`` or ``decode_splits`` can be read off one
+run. Prints one line per (kind, shape), then the card's name and power
+limit. Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -21,9 +27,43 @@ from pathlib import Path
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
+K3_CASES = ((4, 2176, (2049, 2176, 2100, 2150)), (8, 384, None), (1, 2176, (2100,)), (64, 256, None))
 SHAPES = ((1, 2048, 2048), (16, 2048, 2048), (16, 2048, 5632), (64, 2048, 5632), (64, 2048, 2048),
           (64, 5632, 2048), (64, 2048, 32000), (80, 2048, 2048), (80, 2048, 5632),
           (128, 2048, 2048), (128, 5632, 2048), (256, 2048, 5632), (150, 2048, 2048))
+
+
+def k3_sweep(torch, chip_smoke, lib, timer, g, stream) -> None:
+    from llm_consensus_tpu_torch.ops.kernels import attention as ka
+
+    h, hkv, d = 16, 8, 128
+    for b, s, valid in K3_CASES:
+        q, kc, vc = (torch.randn(b, n, hd, d, generator=g, device="cuda").to(torch.bfloat16)
+                     for n, hd in ((1, h), (s, hkv), (s, hkv)))
+        vl = (torch.tensor(valid, dtype=torch.int32, device="cuda") if valid else
+              torch.randint(s // 2, s + 1, (b,), generator=g, device="cuda", dtype=torch.int32))
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, kc, vc))
+        mask = (torch.arange(s, device="cuda")[None, :] < vl[:, None])[:, None, None, :]
+        sdpa = timer.ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask, enable_gqa=True))
+        rule = ka.decode_splits(b, hkv, s, ka.decode_blocks_per_sm(2, d, h // hkv))
+        out = torch.empty_like(q)
+        res = []
+        for span in sorted({rule[1], 128, 160, 192, 224, 256, 288, 320, 384, 448, 544, 768}):
+            n = -(-s // span)
+            if (n - 1) * span >= s:
+                continue
+            ws = torch.empty(max(1, ka.decode_workspace(b, h, d, n)), device="cuda")
+
+            def call(n=n, span=span, ws=ws):
+                return lib.lct_decode_attention(q.data_ptr(), kc.data_ptr(), vc.data_ptr(),
+                                                vl.data_ptr(), out.data_ptr(), ws.data_ptr(), b, s,
+                                                h, hkv, d, n, span, d ** -0.5, 1, stream)
+
+            rc = call()
+            res.append((n, span, "rc", rc) if rc else (n, span, round(timer.ms(call), 4)))
+        print(f"k3 b={b} s_max={s} rule=(n_split {rule[0]}, span {rule[1]}) sdpa_ms={sdpa:.4f} "
+              f"(n_split, span, ms): {res}", flush=True)
 
 
 def main() -> int:
@@ -36,34 +76,41 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("needs a CUDA card", file=sys.stderr)
         return 1
+    kinds = sys.argv[1:] or ["int4", "int8", "k3"]
     lib = build.load_library()
     timer = chip_smoke.Timer(torch)
     g = torch.Generator(device="cuda").manual_seed(3)
     stream = torch.cuda.current_stream().cuda_stream
-    for m, k, n in SHAPES:
-        x = torch.randn(m, k, generator=g, device="cuda").to(torch.bfloat16)
-        w = torch.randint(-128, 128, (k // 2, n), generator=g, device="cuda", dtype=torch.int8)
-        scale = torch.rand(1, n, generator=g, device="cuda")
-        out = torch.empty(m, n, dtype=torch.bfloat16, device="cuda")
-        w_lib = kq.unpack4(w, torch.bfloat16)
-        rule = kq.quant4_tile(m, k, n)
-        res = []
-        for mp in sorted({rule["mp"], next(p for p in (8, 16, 32, 64, 128, 256) if p >= m)}):
-            for splits in (1, 2, 4, 8):
-                if (k // 2) % (64 * splits):
-                    continue
-                stages = max(3, min(8, 96 * 1024 // (64 * 128 + 2 * mp * 128)))  # quant4_tile's
+    if "k3" in kinds:
+        k3_sweep(torch, chip_smoke, lib, timer, g, stream)
+    for fmt in (k for k in kinds if k != "k3"):
+        packed = fmt == "int4"
+        entry = lib.lct_quant4_matmul_wg if packed else lib.lct_quant_matmul_wg
+        for m, k, n in SHAPES:
+            x = torch.randn(m, k, generator=g, device="cuda").to(torch.bfloat16)
+            rows = k // 2 if packed else k
+            w = torch.randint(-128, 128, (rows, n), generator=g, device="cuda", dtype=torch.int8)
+            scale = torch.rand(1, n, generator=g, device="cuda")
+            out = torch.empty(m, n, dtype=torch.bfloat16, device="cuda")
+            w_lib = kq.unpack4(w, torch.bfloat16) if packed else w.to(torch.bfloat16)
+            rule = kq.wgmma_tile(m, k, n, packed)
+            res = []
+            for mp in sorted({rule["mp"], next(p for p in (8, 16, 32, 64, 128, 256) if p >= m)}):
+                stages = kq.wgmma_tile(mp, k, n, packed)["stages"]  # the rule's depth at mp
+                for splits in (1, 2, 4, 8):
+                    if (k // 128) % splits:
+                        continue
 
-                def call(mp=mp, splits=splits, stages=stages):
-                    return lib.lct_quant4_matmul_wg(
-                        x.data_ptr(), w.data_ptr(), scale.data_ptr(), out.data_ptr(),
-                        m, k, n, 1, mp, splits, stages, stream)
+                    def call(mp=mp, splits=splits, stages=stages):
+                        return entry(x.data_ptr(), w.data_ptr(), scale.data_ptr(), out.data_ptr(),
+                                     m, k, n, 1, mp, splits, stages, stream)
 
-                rc = call()
-                res.append((mp, splits, "rc", rc) if rc else (mp, splits, round(timer.ms(call), 4)))
-        lib_ms = timer.ms(lambda: x @ w_lib)
-        print(f"m={m} k={k} n={n} rule=(mp {rule['mp']}, splits {rule['splits']}) "
-              f"cublas_ms={lib_ms:.4f} (mp, splits, ms): {res}", flush=True)
+                    rc = call()
+                    res.append((mp, splits, "rc", rc) if rc else
+                               (mp, splits, round(timer.ms(call), 4)))
+            lib_ms = timer.ms(lambda: x @ w_lib)
+            print(f"{fmt} m={m} k={k} n={n} rule=(mp {rule['mp']}, splits {rule['splits']}) "
+                  f"cublas_ms={lib_ms:.4f} (mp, splits, ms): {res}", flush=True)
     print(chip_smoke.nvidia_smi_line())
     return 0
 

@@ -266,14 +266,14 @@ def test_k10_launch_rule_covers_every_projection(model):
             if not kq.quant4_matmul_supported(m, k, n):
                 continue
             seen += 1
-            t = kq.quant4_tile(m, k, n)
+            t = kq.wgmma_tile(m, k, n, True)
             splits, tiles = t["grid"]
             assert t["mp"] == min(p for p in (8, 16, 32, 64, 96, 128, 192, 256) if p >= m)
             assert splits == t["splits"] and splits in (1, 2, 4, 8)
-            assert splits * t["rows"] == k // 2 and t["rows"] % 64 == 0
+            assert splits * t["stages_per_block"] * 64 == k // 2
             assert tiles * 128 == n
             assert 3 <= t["stages"] <= 8
-            assert t["smem"] == kq.quant4_smem_bytes(t["mp"], t["stages"])
+            assert t["smem"] == kq.wgmma_smem_bytes(t["mp"], t["stages"], True)
             assert t["mp"] * (128 + 8) * 4 + 128 <= t["smem"] <= 232448
             assert t["stages"] * (128 * 64 + 2 * t["mp"] * 128) + 128 <= t["smem"]
     assert seen >= 5 * 2
@@ -282,7 +282,7 @@ def test_k10_launch_rule_covers_every_projection(model):
 def test_k10_launch_rule_refuses_what_it_cannot_tile():
     for m, k, n in ((0, 256, 128), (257, 256, 128), (4, 256, 200), (4, 255, 128), (4, 96, 128)):
         with pytest.raises(ValueError):
-            kq.quant4_tile(m, k, n)
+            kq.wgmma_tile(m, k, n, True)
 
 
 @pytest.mark.parametrize("model", ["llama-1b", "llama3-8b"])

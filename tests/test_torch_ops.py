@@ -360,36 +360,79 @@ def test_shared_prefix_bf16_within_one_rounding_of_fp32_oracle():
 # ---------------------------------------------------------------------------
 
 
+def _split_rule_holds(b, hkv, s_max, blocks_per_sm):
+    """The split-KV grid of K3 and K4 for one cache length: whole 32-slot
+    chunks, at least four a split (one for each warp), every slot covered
+    once, and ``blocks_per_sm`` blocks for each of the H100's 132 SMs
+    unless the floor of 128 slots a split binds."""
+    n, span = ka.decode_splits(b, hkv, s_max, blocks_per_sm)
+    assert span % 32 == 0 and span >= 128
+    assert n * span >= s_max > (n - 1) * span
+    assert b * hkv * n >= blocks_per_sm * 132 or n == -(-s_max // 128)
+    return n
+
+
 @pytest.mark.parametrize("b", [1, 2, 4, 8, 64])
 @pytest.mark.parametrize("hkv", [1, 2, 8])
 def test_k4_split_rule(b, hkv):
-    """K4's grid (Hkv, B, n_split) from the host-known shapes: whole
-    32-slot chunks, at least four a split (one for each warp), every slot
-    covered once, and two blocks for each of the H100's 132 SMs unless the
-    floor of 128 slots a split binds; the workspace the wrapper allocates is the C entry point's
-    n_split * B * H * (D + 2) floats (none for one split)."""
+    """K4's grid (Hkv, B, n_split) from the host-known shapes: two blocks
+    an SM at every int8 shape (its ~70 KB blocks leave room for that), the
+    split rule's properties, and the workspace the wrapper allocates is the
+    C entry point's n_split * B * H * (D + 2) floats (none for one split)."""
     src = (ROOT / "llm_consensus_tpu_torch/ops/kernels/csrc/decode_attention_q8.cu").read_text()
     assert "n_split * B * H * (D + 2)" in src
+    assert all(ka.decode_blocks_per_sm(1, d, g) == 2 for d in (16, 32, 64, 128) for g in (1, 2, 4, 8))
     for s_max in (1, 31, 64, 100, 256, 300, 384, 2176, 8192):
-        n, span = ka.decode_q8_splits(b, hkv, s_max)
-        assert span % 32 == 0 and span >= 128
-        assert n * span >= s_max > (n - 1) * span
-        assert b * hkv * n >= 2 * 132 or n == -(-s_max // 128)
+        n = _split_rule_holds(b, hkv, s_max, 2)
         for h, d in ((hkv, 128), (8 * hkv, 16)):
             want = n * b * h * (d + 2) if n > 1 else 0
-            assert ka.decode_q8_workspace(b, h, d, n) == want
+            assert ka.decode_workspace(b, h, d, n) == want
 
 
-def _emulate_k4(q, k_q, k_scale, v_q, v_scale, valid_len):
-    """csrc/decode_attention_q8.cu's arithmetic in float32 torch: per (row,
-    kv head) the splits the rule picks; in a split, warp w scores chunks w,
-    w + 4, ... of 32 slots with one online-softmax update a chunk (the V
-    scale folded into p); the warps merged by log-sum-exp, then the splits,
-    in order."""
+@pytest.mark.parametrize("b", [1, 2, 4, 8, 64])
+@pytest.mark.parametrize("hkv", [1, 2, 8])
+def test_k3_split_rule(b, hkv):
+    """K3's grid from the same rule, aimed at the blocks the card keeps
+    resident for the dense cache's element size: a bf16 block at D = 128
+    (one 16.9 KB stage for each of 4 warps) leaves room for three on a 228
+    KB SM, so the grid aims at two as K4's does; a float32 one at D = 128
+    (one 33.3 KB stage a warp) leaves room for one; the shared memory is csrc/decode_split.cuh's (the ring's
+    budget and stage layout read from its text); the workspace is the C
+    entry point's."""
+    src = (ROOT / "llm_consensus_tpu_torch/ops/kernels/csrc/decode_attention.cu").read_text()
+    assert "n_split * B * H * (D + 2)" in src
+    cuh = (ROOT / "llm_consensus_tpu_torch/ops/kernels/csrc/decode_split.cuh").read_text()
+    assert "kRingBudget = 128 * 1024" in cuh and "E k[kChunk][D + kPerVec];" in cuh
+    assert ka.decode_split_smem(2, 128, 2) == 4 * 16912 + 2 * 128 * 4 + 4 * 2 * 32 * 4 + 32
+    assert ka.decode_split_smem(2, 64, 2) == 8 * 8720 + 2 * 64 * 4 + 4 * 2 * 32 * 4 + 64
+    assert ka.decode_split_smem(4, 128, 2) == 4 * 33296 + 2 * 128 * 4 + 4 * 2 * 32 * 4 + 32
+    for elem in (2, 4):
+        for d in (16, 32, 64, 128):
+            for g in (1, 2, 4, 8):
+                per_sm = ka.decode_blocks_per_sm(elem, d, g)
+                assert per_sm == (1 if elem * d >= 512 else 2), (elem, d, g)
+                assert (ka.decode_split_smem(elem, d, g) + 1024) * per_sm <= 233472
+    for s_max in (1, 31, 64, 100, 256, 300, 384, 2176, 8192):
+        n = _split_rule_holds(b, hkv, s_max, 2)
+        assert (n, _split_rule_holds(b, hkv, s_max, 1)) == (
+            ka.decode_splits(b, hkv, s_max)[0], ka.decode_splits(b, hkv, s_max, 1)[0])
+        for h, d in ((hkv, 128), (8 * hkv, 16)):
+            want = n * b * h * (d + 2) if n > 1 else 0
+            assert ka.decode_workspace(b, h, d, n) == want
+
+
+def _emulate_split(q, k, v, valid_len, blocks_per_sm, k_scale=None, v_scale=None):
+    """csrc/decode_split.cuh's arithmetic in float32 torch, on a head-major
+    cache k, v [B, Hkv, S_max, D] (the int8 one with its scales, or the
+    dense one transposed): per (row, kv head) the splits the rule picks; in
+    a split, warp w scores chunks w, w + 4, ... of 32 slots (q times d^-1/2
+    first) with one online-softmax update a chunk (the int8 cache's K scale
+    on the scores, its V scale folded into p); the warps merged by
+    log-sum-exp, then the splits, in order."""
     b, _, h, d = q.shape
-    hkv, s_max = k_q.shape[1], k_q.shape[2]
+    hkv, s_max = k.shape[1], k.shape[2]
     g = h // hkv
-    n_split, span = ka.decode_q8_splits(b, hkv, s_max)
+    n_split, span = ka.decode_splits(b, hkv, s_max, blocks_per_sm)
     neg = torch.tensor(-float("inf"))
 
     def merge(states):
@@ -415,12 +458,15 @@ def _emulate_k4(q, k_q, k_scale, v_q, v_scale, valid_len):
                     for c in range(w, chunks, 4):
                         c0 = lo + 32 * c
                         c1 = min(hi, c0 + 32)
-                        sc = (qg @ k_q[bi, kvh, c0:c1].float().T) * k_scale[bi, kvh, c0:c1]
+                        sc = qg @ k[bi, kvh, c0:c1].float().T
+                        if k_scale is not None:
+                            sc = sc * k_scale[bi, kvh, c0:c1]
                         m_new = torch.maximum(m, sc.amax(-1))
                         alpha = torch.where(m == neg, 0.0, torch.exp(m - m_new))
                         p = torch.exp(sc - m_new[:, None])
                         l = l * alpha + p.sum(-1)
-                        acc = acc * alpha[:, None] + (p * v_scale[bi, kvh, c0:c1]) @ v_q[bi, kvh, c0:c1].float()
+                        pv = p if v_scale is None else p * v_scale[bi, kvh, c0:c1]
+                        acc = acc * alpha[:, None] + pv @ v[bi, kvh, c0:c1].float()
                         m = m_new
                     warps.append((m, l, acc))
                 parts.append(merge(warps))
@@ -428,6 +474,40 @@ def _emulate_k4(q, k_q, k_scale, v_q, v_scale, valid_len):
             o = torch.where(tot_l[:, None] > 0, tot / torch.clamp(tot_l[:, None], min=1e-30), 0.0)
             out[bi, 0, kvh * g:(kvh + 1) * g] = o
     return out.to(q.dtype)
+
+
+def _emulate_k4(q, k_q, k_scale, v_q, v_scale, valid_len):
+    return _emulate_split(q, k_q, v_q, valid_len, 2, k_scale, v_scale)
+
+
+def _emulate_k3(q, k_cache, v_cache, valid_len):
+    """K3: the split-KV pass over the token-major dense cache, its grid
+    aimed at the blocks per SM of a bf16 cache of this head_dim."""
+    per_sm = ka.decode_blocks_per_sm(2, q.shape[-1], q.shape[2] // k_cache.shape[2])
+    return _emulate_split(q, k_cache.transpose(1, 2), v_cache.transpose(1, 2), valid_len, per_sm)
+
+
+@pytest.mark.parametrize("b,h,hkv,d,s_max,valid", [
+    (3, 8, 2, 128, 600, [1, 600, 290]),  # 5 splits of 128, some past valid_len; a ragged chunk
+    (2, 8, 8, 16, 37, [37, 1]),  # G = 1, one split, S_max not a multiple of 32
+    (1, 8, 1, 128, 2100, [2100]),  # G = 8, 17 splits, the last one ragged
+    (4, 16, 8, 16, 2176, [2049, 2176, 2100, 2150]),  # the panel's decode at D = 16: 10 splits
+])
+def test_k3_split_and_merge_emulated_matches_twin_and_jax(b, h, hkv, d, s_max, valid):
+    rng = np.random.default_rng(b * 1000 + s_max)
+    q = rng.standard_normal((b, 1, h, d)).astype(np.float32)
+    kc = rng.standard_normal((b, s_max, hkv, d)).astype(np.float32)
+    vc = rng.standard_normal((b, s_max, hkv, d)).astype(np.float32)
+    valid = np.array(valid, np.int32)
+    t = [_t(kc), _t(vc), torch.from_numpy(valid)]
+    got = _emulate_k3(_t(q), *t).numpy()
+    plain = ka.flash_decode_attention_plain(_t(q), *t).numpy()
+    jax_out = _np(j_flash_decode(*map(jnp.asarray, (q, kc, vc, valid)), interpret=True))
+    np.testing.assert_allclose(got, plain, rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(got, jax_out, rtol=1e-5, atol=1e-5)
+    # valid_len 0: zeros (decode never passes it).
+    t[-1] = torch.zeros(b, dtype=torch.int32)
+    assert not _emulate_k3(_t(q), *t).any()
 
 
 @pytest.mark.parametrize("b,h,hkv,d,s_max,valid", [

@@ -48,7 +48,7 @@ from llm_consensus_tpu_torch.engine.engine import EngineConfig, InferenceEngine
 from llm_consensus_tpu_torch.engine.generate import generate
 from llm_consensus_tpu_torch.models import transformer as tt
 from llm_consensus_tpu_torch.models.cache import QuantKVCache, quantize_kv
-from llm_consensus_tpu_torch.models.configs import get_config
+from llm_consensus_tpu_torch.models.configs import PRESETS, get_config
 from llm_consensus_tpu_torch.ops import attention, kernels, quant
 from llm_consensus_tpu_torch.ops.kernels import attention as ka
 from llm_consensus_tpu_torch.ops.kernels import quant_matmul as kq
@@ -191,19 +191,136 @@ def test_quant_matmul_stacked_twin_matches_pallas():
         np.testing.assert_allclose(got.numpy(), pallas, rtol=1e-5, atol=1e-5 * np.abs(pallas).max())
 
 
-@pytest.mark.parametrize("m", [1, 4, 17, 64, 256])
-@pytest.mark.parametrize("k,n", [(2048, 2048), (2048, 512), (5632, 2048), (2048, 32000), (384, 256)])
-def test_tensor_core_splits_cut_k_in_whole_chunks(m, k, n):
-    """The tensor-core K6 cuts K into parts of whole 128-row chunks, only
-    while its grid holds fewer than two blocks per SM (llama-1b's shapes
-    and a small one)."""
-    splits = kq.tensor_core_splits(m, k, n)
-    assert splits in (1, 2, 4, 8, 16) and (k // splits) % 128 == 0
-    bm = 16 if m <= 16 else 32 if m <= 32 else 64
-    blocks = -(-m // bm) * (n // 32)
-    if splits > 1:
-        assert blocks * splits // 2 < 264
-    assert blocks * splits >= 264 or splits == 16 or (k // 128) % (2 * splits)
+def _k6_ms():
+    """The M values at which phase 2 of chip_smoke.py holds K6 (the engine's
+    and the serving path's)."""
+    import chip_smoke
+
+    return sorted({m for m, *_ in chip_smoke.k6_cases(get_config("llama-1b"))})
+
+
+def _projections(name):
+    c = get_config(name)
+    d, dh = c.d_model, c.head_dim
+    return ((d, c.n_heads * dh), (d, c.n_kv_heads * dh), (d, c.d_ff), (c.d_ff, d),
+            (d, c.vocab_size))
+
+
+@pytest.mark.parametrize("m", [1, 4, 16, 64, 80, 128, 256])
+@pytest.mark.parametrize("model", sorted(PRESETS))
+def test_k6_launch_rule_covers_every_projection(model, m):
+    """For every projection of the preset that the shape rule sends to K6 at
+    the engine's and the serving path's M and at 256, the largest the rule
+    accepts (bf16 x), the wgmma launch has a
+    tile with mp >= M, a cluster of at most 8 blocks that cuts K into whole
+    128-row stages (two 64-row int8 boxes each), 128-column tiles that
+    cover N exactly, a grid that stops doubling its splits once it holds
+    132 blocks (mp <= 32) or 64 (above), and shared memory within the
+    H100's 227 KB."""
+    assert m in _k6_ms() or m == 256
+    for k, n in _projections(model):
+        if not kq.quant_matmul_supported(m, k, n):
+            continue
+        t = kq.wgmma_tile(m, k, n, False)
+        splits, tiles = t["grid"]
+        assert t["mp"] == min(p for p in (8, 16, 32, 64, 96, 128, 192, 256) if p >= m)
+        assert splits == t["splits"] and splits in (1, 2, 4, 8)
+        assert splits * t["stages_per_block"] * 128 == k
+        assert tiles * 128 == n
+        target = 132 if t["mp"] <= 32 else 64
+        if splits > 1:
+            assert tiles * splits // 2 < target
+        assert tiles * splits >= target or splits == 8 or (k // 128) % (2 * splits)
+        assert 2 <= t["stages"] <= 8 and (t["stages"] >= 3 or t["mp"] == 256)
+        assert t["smem"] == kq.wgmma_smem_bytes(t["mp"], t["stages"], False)
+        assert t["stages"] * (2 * 64 * 128 + 2 * t["mp"] * 128) + 128 <= t["smem"] <= 232448
+        assert t["mp"] * (128 + 8) * 4 + 128 <= t["smem"]
+
+
+def test_k6_launch_rule_refuses_what_it_cannot_tile():
+    for m, k, n in ((0, 256, 128), (257, 256, 128), (4, 256, 200), (4, 192, 128), (4, 64, 128)):
+        with pytest.raises(ValueError):
+            kq.wgmma_tile(m, k, n, False)
+
+
+def _bytes_bf16(word: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """K6's unpack (csrc/quant_wgmma.cuh: bytes_bf16) in torch: each byte
+    of the 32-bit ``word`` (held in an int64), biased by 128, as the low
+    byte of the float 2^23's bits, less 2^23 + 128 in float32; the top 16
+    bits of the floats of bytes (0, 2) and (1, 3) as two bf16 pairs, low
+    half first."""
+    u = word ^ 0x80808080
+    f = [((u >> (8 * i)) & 0xFF | 0x4B000000).to(torch.int32).view(torch.float32) - 8388736.0
+         for i in range(4)]
+    bits = [x.view(torch.int32) for x in f]
+    even = torch.stack([(bits[0] >> 16) & 0xFFFF, (bits[2] >> 16) & 0xFFFF], -1)
+    odd = torch.stack([(bits[1] >> 16) & 0xFFFF, (bits[3] >> 16) & 0xFFFF], -1)
+    return (even.to(torch.int16).view(torch.bfloat16),
+            odd.to(torch.int16).view(torch.bfloat16))
+
+
+def test_k6_byte_unpack_bit_for_bit_on_every_byte():
+    """Every byte value in each of a 32-bit word's four places: the same
+    bf16 bits as ``w.to(torch.bfloat16)`` and as the JAX ``_qmm_kernel``'s
+    ``w.astype(jnp.bfloat16)``."""
+    b = torch.arange(-128, 128, dtype=torch.int32)
+    ref = b.to(torch.int8).to(torch.bfloat16)
+    j_ref = np.asarray(jnp.asarray(b.numpy().astype(np.int8)).astype(jnp.bfloat16), np.float32)
+    u = b.to(torch.int64) & 0xFF
+    for place in range(4):
+        word = (u << (8 * place)) | (0xA55AA55A & ~(0xFF << (8 * place)))  # other bytes set
+        even, odd = _bytes_bf16(word)
+        got = (even, odd)[place % 2][:, place // 2]
+        assert torch.equal(got.view(torch.int16), ref.view(torch.int16)), place
+        np.testing.assert_array_equal(got.float().numpy(), j_ref)
+
+
+def _emulate_k6(x, w_q, scale, out_dtype):
+    """csrc/quant_wgmma.cuh's K6 in float32 torch, in its order: per
+    128-column tile, each of the rule's split parts sums its 128-row stages
+    (bf16 x times the weights made bf16, float32 sums), the parts are added
+    in rank order, then scaled and cast."""
+    m, k = x.shape
+    n = w_q.shape[1]
+    t = kq.wgmma_tile(m, k, n, False)
+    xb, wb = x.to(torch.bfloat16).float(), w_q.to(torch.bfloat16).float()
+    rows = k // t["splits"]
+    out = torch.empty(m, n)
+    for c0 in range(0, n, 128):
+        parts = []
+        for r in range(t["splits"]):
+            part = torch.zeros(m, 128)
+            for k0 in range(r * rows, (r + 1) * rows, 128):
+                part += xb[:, k0:k0 + 128] @ wb[k0:k0 + 128, c0:c0 + 128]
+            parts.append(part)
+        total = parts[0]
+        for part in parts[1:]:
+            total = total + part
+        out[:, c0:c0 + 128] = total * scale[0, c0:c0 + 128]
+    return out.to(out_dtype)
+
+
+@pytest.mark.parametrize("m,k,n", [(1, 1024, 256), (16, 512, 384), (64, 1024, 128), (80, 256, 256)])
+def test_k6_split_order_emulated_matches_pallas(m, k, n):
+    """The emulated split order (2-8 parts at M <= 16, the wide rule above)
+    against the Pallas kernel in interpret mode: one bf16 rounding of the
+    bf16 output, 1e-5 of the float32 one (the same products summed in
+    another order)."""
+    rng = np.random.default_rng(m + k + n)
+    jw = _qweight(rng, k, n)
+    x = rng.standard_normal((m, k)).astype(np.float32)
+    wq, ws = _leaf(jw).q, _leaf(jw).scale
+    assert kq.wgmma_tile(m, k, n, False)["splits"] > 1 or m > 32
+    xb = jnp.asarray(x).astype(jnp.bfloat16)
+    pallas = _np(j_qmm.quant_matmul_2d(xb, jw.q, jw.scale, interpret=True))
+    got = _emulate_k6(_t(x), wq, ws, torch.bfloat16)
+    np.testing.assert_allclose(got.float().numpy(), pallas, rtol=2.0**-8,
+                               atol=2.0**-8 * np.abs(pallas).max())
+    pallas32 = _np(j_qmm.quant_matmul_2d(xb, jw.q, jw.scale, out_dtype=jnp.float32,
+                                         interpret=True))
+    got32 = _emulate_k6(_t(x), wq, ws, torch.float32)
+    np.testing.assert_allclose(got32.numpy(), pallas32, rtol=1e-5,
+                               atol=1e-5 * np.abs(pallas32).max())
 
 
 def test_large_m_takes_the_dequantize_path_in_both_packages(monkeypatch):
