@@ -8,8 +8,10 @@ nothing of JAX or of the JAX package. Phases:
 
 1. Build the kernels; print the card's name and power limit, and nvcc's
    register, shared-memory and spill report for K1's and K2's bf16
-   instantiations, for the split-KV pass of K3 and K4 and its merge, and
-   for the wgmma kernel of K6 and K10.
+   instantiations, for the split-KV pass (K3, K4, and the suffix and
+   decode rows of K7, K7-q8 and K8) and its merge, for the tile pass (K7's
+   and K7-q8's prefix, K8's group pass, chunk and verify rows; both
+   kernels), and for the wgmma kernel of K6 and K10.
 2. Hold each kernel (K1 RMSNorm, K2 causal prefill attention, K3 decode
    attention, K7 shared-prefix decode attention; K4 int8-cache decode
    attention and K5, K4 on a layer of the stacked cache; K6 the W8A16
@@ -31,10 +33,13 @@ nothing of JAX or of the JAX package. Phases:
    32-slot chunks), one row over 2176 slots, and every head_dim in {16,
    32, 64, 128} x group size in {1, 2, 4, 8}; K10 also at N = 384 and
    1152 (multiples of 128, not of 256) for M in {1, 16, 80, 256}
-   and at every llama-1b projection at M = 256, both types. K3, K4, K6
-   and K10 are launched twice on the same inputs and must give the same
-   bits. K7 is also held against K3, and K7-q8 against K4, on the same
-   cache. Print
+   and at every llama-1b projection at M = 256, both types. K7 and K7-q8
+   also at a prefix of 100 slots (not a multiple of 32 or 64), a prefix
+   equal to every row's valid_len (no suffix), a prefix equal to S_max,
+   one row over 2176 slots, and every head_dim x group size, both types.
+   K3, K4, K6, K7, K7-q8, K8 and K10 are launched twice on the same inputs
+   and must give the same bits (``repeat_bitwise``). K7 is also held
+   against K3, and K7-q8 against K4, on the same cache. Print
    the max abs error and the worst ratio of error to tolerance, the
    kernel's time, the twin's time, one PyTorch call computing the same
    function (``library_ms``: F.rms_norm, scaled_dot_product_attention on
@@ -42,9 +47,12 @@ nothing of JAX or of the JAX package. Phases:
    weight dequantized ahead of time) and the bound (the least time the
    card could take for the same work). K8 (ragged paged attention) on
    the cases of ``K8_CASES`` at llama-1b serving shapes (page 64, 32
-   pages a table): bf16, float32, and float32 queries over a bf16 pool;
-   its fused case timed against the twin and two SDPA calls on K/V
-   gathered out of the pool ahead of time.
+   pages a table; also one row of the whole 2048-slot table, a window
+   whose edge falls inside a split, shared starts and group ends at 200,
+   verify rows in groups): bf16, float32, and float32 queries over a bf16
+   pool; its fused case and its 16 decode rows timed against the twin and
+   SDPA (two calls for the fused case) on K/V gathered out of the pool
+   ahead of time.
 3. The main path, part one: llama-1b at full width and depth, random
    weights from a fixed seed, answers one question through Coordinator
    -> LocalBackend -> InferenceEngine (default panel, round cap 2, 64 new
@@ -355,28 +363,39 @@ def kernel_cases(torch, cfg, timer):
         r["bitwise"] = bool(torch.equal(got, fn()))  # a second launch, the same bits
         return r
 
-    def k7(dtype, b, s):  # the fan-out's decode, 64 tokens into the answer
+    def k7(dtype, b, s, s_max=None, plen=None, valid=None, heads=None):
+        """The fan-out's decode, 64 tokens into the answer, over a cache of
+        prompt + 128 slots (a prompt of s - 13 tokens in bucket s); or
+        (edge cases, s None) over ``s_max`` slots with ``plen`` shared and
+        the given ``valid`` lengths and (H, Hkv, D) ``heads``."""
+        h, hkv, dh = heads or (cfg.n_heads, cfg.n_kv_heads, cfg.head_dim)
         es = torch.finfo(dtype).bits // 8
-        s_max, plen = s + 128, s - 13  # a prompt of s - 13 tokens in bucket s
+        if s is not None:
+            s_max, plen = s + 128, s - 13
         qd = randn(b, 1, h, dh, dtype=dtype)
         kc = randn(b, s_max, hkv, dh, dtype=dtype)
         vc = randn(b, s_max, hkv, dh, dtype=dtype)
         kc[:, :plen], vc[:, :plen] = kc[:1, :plen].clone(), vc[:1, :plen].clone()
-        vl = torch.full((b,), plen + 64, device="cuda", dtype=torch.int32)
+        if valid is None:
+            vl = torch.full((b,), plen + 64, device="cuda", dtype=torch.int32)
+        else:
+            vl = torch.tensor(valid, device="cuda", dtype=torch.int32)
         mask = (torch.arange(s_max, device="cuda")[None, :] < vl[:, None])[:, None, None, :]
         qdt, kct, vct = (t.transpose(1, 2) for t in (qd, kc, vc))
-        got = ka.flash_decode_attention_shared_prefix(qd, kc, vc, vl, plen)
-        n_read = plen + int((vl - plen).sum())  # the prefix once, each suffix
+        fn = lambda: ka.flash_decode_attention_shared_prefix(qd, kc, vc, vl, plen)  # noqa: E731
+        got = fn()
+        n_read = plen + int((vl - plen).clamp(min=0).sum())  # the prefix once, each suffix
         r = row(
             "flash_decode_attention_shared_prefix", dtype, b, s,
-            f"q[{b},1,{h},{dh}] cache[{b},{s_max},{hkv},{dh}] prefix {plen}",
-            got, ka.flash_decode_attention_shared_prefix_plain(qd, kc, vc, vl, plen),
-            lambda: ka.flash_decode_attention_shared_prefix(qd, kc, vc, vl, plen),
+            f"q[{b},1,{h},{dh}] cache[{b},{s_max},{hkv},{dh}] prefix {plen}"
+            + (f" valid_len {valid}" if valid is not None else ""),
+            got, ka.flash_decode_attention_shared_prefix_plain(qd, kc, vc, vl, plen), fn,
             lambda: ka.flash_decode_attention_shared_prefix_plain(qd, kc, vc, vl, plen),
             lambda: F.scaled_dot_product_attention(qdt, kct, vct, attn_mask=mask, enable_gqa=True),
             (2 * n_read * hkv * dh + 2 * qd.numel()) * es + 4 * b,
             4 * int(vl.sum()) * h * dh,
         )
+        r["bitwise"] = bool(torch.equal(got, fn()))  # a second launch, the same bits
         return held_against(r, "k3", dtype, got, ka.flash_decode_attention(qd, kc, vc, vl),
                             lambda: ka.flash_decode_attention(qd, kc, vc, vl))
 
@@ -438,13 +457,20 @@ def kernel_cases(torch, cfg, timer):
         r["bitwise"] = bool(torch.equal(got, fn()))  # a second launch, the same bits
         return r
 
-    def k7q8(dtype, b, s, stacked=False):  # the int8 fan-out's decode
+    def k7q8(dtype, b, s, stacked=False, s_max=None, plen=None, valid=None, heads=None):
+        """The int8 fan-out's decode, as :func:`k7`; or its edge cases."""
+        h, hkv, dh = heads or (cfg.n_heads, cfg.n_kv_heads, cfg.head_dim)
         es = torch.finfo(dtype).bits // 8
-        s_max, plen = s + 128, s - 13
+        if s is not None:
+            s_max, plen = s + 128, s - 13
         layer = 1 if stacked else 0
         qd = randn(b, 1, h, dh, dtype=dtype)
-        (kq_, ks, vq_, vs), (kd, vd) = q8_cache(b, s_max, plen, layers=layer + 1)
-        vl = torch.full((b,), plen + 64, device="cuda", dtype=torch.int32)
+        (kq_, ks, vq_, vs), (kd, vd) = q8_cache(b, s_max, plen, layers=layer + 1,
+                                                heads=(hkv, dh))
+        if valid is None:
+            vl = torch.full((b,), plen + 64, device="cuda", dtype=torch.int32)
+        else:
+            vl = torch.tensor(valid, device="cuda", dtype=torch.int32)
         mask = (torch.arange(s_max, device="cuda")[None, :] < vl[:, None])[:, None, None, :]
         qdt, kdl, vdl = qd.transpose(1, 2), kd[layer].to(dtype), vd[layer].to(dtype)
         views = (kq_[layer], ks[layer], vq_[layer], vs[layer])
@@ -456,16 +482,18 @@ def kernel_cases(torch, cfg, timer):
             name = "flash_decode_attention_shared_prefix_q8"
             fn = lambda: ka.flash_decode_attention_shared_prefix_q8(qd, *views, vl, plen)  # noqa: E731
         got = fn()
-        n_read = plen + int((vl - plen).sum())  # the prefix once, each suffix
+        n_read = plen + int((vl - plen).clamp(min=0).sum())  # the prefix once, each suffix
         r = row(
             name, dtype, b, s,
             f"q[{b},1,{h},{dh}] cache_q8[{b},{hkv},{s_max},{dh}] prefix {plen}"
-            + (f" layer {layer} of 2" if stacked else ""),
+            + (f" layer {layer} of 2" if stacked else "")
+            + (f" valid_len {valid}" if valid is not None else ""),
             got, ka.flash_decode_attention_shared_prefix_q8_plain(qd, *views, vl, plen), fn,
             lambda: ka.flash_decode_attention_shared_prefix_q8_plain(qd, *views, vl, plen),
             lambda: F.scaled_dot_product_attention(qdt, kdl, vdl, attn_mask=mask, enable_gqa=True),
-            q8_bytes(n_read, qd, es, b), 4 * int(vl.sum()) * h * dh,
+            q8_bytes(n_read, qd, es, b, hkv, dh), 4 * int(vl.sum()) * h * dh,
         )
+        r["bitwise"] = bool(torch.equal(got, fn()))  # a second launch, the same bits
         return held_against(r, "k4", dtype, got, ka.flash_decode_attention_q8(qd, *views, vl),
                             lambda: ka.flash_decode_attention_q8(qd, *views, vl))
 
@@ -553,6 +581,19 @@ def kernel_cases(torch, cfg, timer):
         for d in (16, 32, 64, 128):
             for g in (1, 2, 4, 8):
                 rows.append(k4(dtype, 2, None, s_max=200, valid=[200, 77], heads=(4 * g, 4, d)))
+        # K7 and K7-q8 (the prefix on the tile pass, the suffix on the
+        # split-KV pass) at their edges: a prefix not a multiple of 32 or
+        # 64, a prefix equal to valid_len (no suffix) and to S_max, one row
+        # over 2176 slots, every head_dim x group size at one size.
+        for fn in (k7, k7q8):
+            rows += [fn(dtype, 3, None, s_max=300, plen=100, valid=[101, 300, 250]),
+                     fn(dtype, 3, None, s_max=300, plen=150, valid=[150, 150, 150]),
+                     fn(dtype, 2, None, s_max=300, plen=300, valid=[300, 300]),
+                     fn(dtype, 1, None, s_max=2176, plen=1000, valid=[2176])]
+            for d in (16, 32, 64, 128):
+                for g in (1, 2, 4, 8):
+                    rows.append(fn(dtype, 2, None, s_max=200, plen=77, valid=[200, 90],
+                                   heads=(4 * g, 4, d)))
         for m in (1, 16, 80, 256):
             for n in (384, 1152):
                 rows.append(k10(dtype, m, cfg.d_model, n))
@@ -595,8 +636,14 @@ K8_CASES = (
     ("4 verify rows of NQ=4", dict(b=4, nq=4)),
     ("window 256", dict(window=256)),
     ("fused, window 256", dict(b=8, groups=2, chunk=64, window=256)),
+    ("one row of the full 2048-slot table", dict(b=1, full=True)),
+    ("window 77 (its edge inside a split)", dict(window=77)),
+    ("shared starts and group ends at 200 (not a multiple of 32)", dict(groups=2, run=200)),
+    ("verify rows of NQ=4 in 2 groups", dict(b=8, nq=4, groups=2)),
 )
 K8_REPORTED = "fused: 8 grouped decode rows + a 64-token chunk at 256"
+# Timed besides the reported case: the decode rows alone (K8's split-KV pass).
+K8_TIMED = (K8_REPORTED, "16 decode rows, lengths 70-1500")
 
 
 def ragged_cases(torch, cfg, timer):
@@ -618,7 +665,7 @@ def ragged_cases(torch, cfg, timer):
         return torch.randn(shape, generator=gen, device="cuda").to(dtype)
 
     def case(label, dtype, kv_dtype, b=16, nq=0, groups=0, chunk=0, cstart=256,
-             window=0, dead=False):
+             window=0, dead=False, run=256, full=False):
         n_pages = 1 + b * P + P
         kp = randn(n_pages, pg, hkv, dh, dtype=kv_dtype)
         vp = randn(n_pages, pg, hkv, dh, dtype=kv_dtype)
@@ -626,17 +673,20 @@ def ragged_cases(torch, cfg, timer):
         tbl = perm[: b * P].reshape(b, P).contiguous()
         ctbl = perm[b * P : b * P + P].contiguous()
         vl = torch.randint(70, 1501, (b,), generator=gen, device="cuda", dtype=torch.int32)
+        if full:
+            vl.fill_(P * pg)
         if dead:
             tbl.zero_()
             vl.zero_()
         kw = dict(window=window)
         sst = torch.zeros(b, dtype=torch.int32, device="cuda")
-        n_groups, run = 0, 256
+        n_groups = 0
         if groups:
             per = b // groups
             n_groups = groups
+            rp = -(-run // pg)
             for gi in range(groups):  # members map the first member's run
-                tbl[gi * per : (gi + 1) * per, : run // pg] = tbl[gi * per, : run // pg]
+                tbl[gi * per : (gi + 1) * per, :rp] = tbl[gi * per, :rp]
             vl = torch.clamp(vl, min=run + 1)
             sst.fill_(run)
             kw["groups"] = (
@@ -651,20 +701,21 @@ def ragged_cases(torch, cfg, timer):
                       chunk_start=cstart)
         fn = lambda: kr.ragged_paged_attention(q, kp, vp, tbl, vl, **kw)  # noqa: E731
         plain = lambda: kr.ragged_paged_attention_plain(q, kp, vp, tbl, vl, **kw)  # noqa: E731
-        got, ref = fn(), plain()
+        got, again, ref = fn(), fn(), plain()
         if not chunk:
-            got, ref = (got,), (ref,)
+            got, again, ref = (got,), (again,), (ref,)
         errs = [compare(dtype, a, r) for a, r in zip(got, ref)]
         r = dict(kernel="ragged_paged_attention", label=label, dtype=str(dtype),
                  kv_dtype=str(kv_dtype), err=max(e for e, _ in errs),
                  ratio=max(x for _, x in errs),
                  finite=all(bool(torch.isfinite(a).all()) for a in got),
+                 bitwise=all(bool(torch.equal(a, x)) for a, x in zip(got, again)),
                  shape=f"q[{b},{nq or 1},{h},{dh}] pool[{n_pages},{pg},{hkv},{dh}]"
                  + (f" chunk {chunk}@{cstart}" if chunk else "")
                  + (f" {groups} groups" if groups else ""))
-        if label != K8_REPORTED or dtype != kv_dtype:
+        if label not in K8_TIMED or dtype != kv_dtype:
             return r
-        r["reported"] = True
+        r["reported"] = label == K8_REPORTED
         # The library: decode rows and chunk through SDPA on K/V gathered
         # out of the pool (in q's type) ahead of time.
         kd = kp[tbl.long()].reshape(b, P * pg, hkv, dh).transpose(1, 2).to(dtype)
@@ -675,22 +726,23 @@ def ragged_cases(torch, cfg, timer):
         qd = q[:, :, None] if not nq else q.transpose(1, 2)
         kc = kp[ctbl.long()].reshape(1, P * pg, hkv, dh).transpose(1, 2).to(dtype)
         vc = vp[ctbl.long()].reshape(1, P * pg, hkv, dh).transpose(1, 2).to(dtype)
-        qc = kw["q_chunk"].transpose(0, 1)[None]
+        qc = kw["q_chunk"].transpose(0, 1)[None] if chunk else None
         cpos = cstart + torch.arange(chunk, device="cuda")
         cmask = (slot[None, :] <= cpos[:, None])[None, None]
 
         def library():
             F.scaled_dot_product_attention(qd, kd, vd, attn_mask=dmask, enable_gqa=True)
-            F.scaled_dot_product_attention(qc, kc, vc, attn_mask=cmask, enable_gqa=True)
+            if chunk:
+                F.scaled_dot_product_attention(qc, kc, vc, attn_mask=cmask, enable_gqa=True)
 
         es, kes = torch.finfo(dtype).bits // 8, torch.finfo(kv_dtype).bits // 8
         # Bytes: each slot's K and V row once (the shared run once per
         # group, each row's own slots past it, the chunk's table up to its
         # last query), q and out, tables and lengths. Operations: 4 * D
         # per (query head, visible slot).
-        slots_read = n_groups * run + int((vl - sst).sum()) + cstart + chunk
+        slots_read = n_groups * run + int((vl - sst).sum()) + (cstart + chunk) * bool(chunk)
         nbytes = (2 * slots_read * hkv * dh * kes + 2 * (q.numel() + chunk * h * dh) * es
-                  + 4 * (b * P + P + 4 * b))
+                  + 4 * (b * P + P * bool(chunk) + 4 * b))
         pairs = int(vl.sum()) * h + h * sum(cstart + i + 1 for i in range(chunk))
         r.update(ms=timer.ms(fn), plain_ms=timer.ms(plain, iters=5),
                  library_ms=timer.ms(library),
@@ -703,15 +755,15 @@ def ragged_cases(torch, cfg, timer):
         for label, kw in K8_CASES:
             rows.append(case(label, dtype, kv_dtype, **kw))
     for r in rows:
-        ok = r["ratio"] <= 1.0 and math.isfinite(r["err"]) and r["finite"]
+        ok = r["ratio"] <= 1.0 and math.isfinite(r["err"]) and r["finite"] and r["bitwise"]
         timing = ""
         if "ms" in r:
             timing = (f" ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} "
                       f"library_ms={r['library_ms']:.4f} "
                       f"bound_ms={r['bound'][0]:.4f} ({r['bound'][1]})")
-        print(f"  K8 {r['dtype']:15s} over {r['kv_dtype']:15s} {r['label']:50s} "
+        print(f"  K8 {r['dtype']:15s} over {r['kv_dtype']:15s} {r['label']:58s} "
               f"{r['shape']:52s} max_abs_err={r['err']:.3e} err/tol={r['ratio']:.3f}"
-              f"{timing} {'ok' if ok else 'FAIL'}")
+              f"{timing} repeat_bitwise={r['bitwise']} {'ok' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError(f"ragged_paged_attention disagrees with its twin: {r}")
     return rows
@@ -1872,6 +1924,7 @@ def main() -> int:
           f"({build.library_path().name})")
     for line in ptxas_lines(build, ("rms_norm_kernel", "causal_attention_tc_kernel",
                                     "decode_split_kernel", "decode_merge_kernel",
+                                    "tile_mma_kernel", "tile_cc_kernel",
                                     "quant_wgmma_kernel")):
         print(f"  ptxas {line}")
 
@@ -1957,7 +2010,7 @@ def main() -> int:
                                    ("bf16", "int8", "int4")),
         "flash_decode_attention": (d + "decode_split.cuh", p + "attention.py:391", ("bf16",)),
         "flash_decode_attention_shared_prefix": (
-            d + "decode_attention.cu", p + "attention.py:1494", ("bf16",)),
+            d + "decode_tile.cuh", p + "attention.py:1494", ("bf16",)),
         "flash_decode_attention_q8": (d + "decode_split.cuh", p + "attention.py:280",
                                       ("int8", "int4")),
         "flash_decode_attention_q8_stacked": (
@@ -1965,9 +2018,9 @@ def main() -> int:
         "quant_matmul_2d": (d + "quant_wgmma.cuh", p + "quant_matmul.py:59",
                             ("int8", "serve_int8")),
         "flash_decode_attention_shared_prefix_q8": (
-            d + "decode_attention.cu", p + "attention.py:1541", ("int8", "int4")),
+            d + "decode_tile.cuh", p + "attention.py:1541", ("int8", "int4")),
         "flash_decode_attention_shared_prefix_q8_stacked": (
-            d + "decode_attention.cu", p + "attention.py:1586", ("int8_stacked_check",)),
+            d + "decode_tile.cuh", p + "attention.py:1586", ("int8_stacked_check",)),
         "ragged_paged_attention": (
             d + "ragged_paged_attention.cu", p + "attention.py:1213",
             ("serve", "serve_int8", "serve_int4")),

@@ -11,7 +11,9 @@ launches and nothing else.
 - K3 :func:`~.attention.flash_decode_attention` (``csrc/decode_attention.cu``,
   the split-KV pass of ``csrc/decode_split.cuh`` on the dense cache)
 - K7 :func:`~.attention.flash_decode_attention_shared_prefix`
-  (``csrc/decode_attention.cu``)
+  (``csrc/decode_attention.cu``: the tile pass of ``csrc/decode_tile.cuh``
+  over the shared prefix, then the split-KV pass over each row's own
+  slots)
 - K4 :func:`~.attention.flash_decode_attention_q8` and K5
   :func:`~.attention.flash_decode_attention_q8_stacked`, K4 on a layer's
   views (``csrc/decode_attention_q8.cu``, the same split-KV pass on the
@@ -22,10 +24,12 @@ launches and nothing else.
   kernel on a layer's views)
 - K7-q8 :func:`~.attention.flash_decode_attention_shared_prefix_q8` and
   :func:`~.attention.flash_decode_attention_shared_prefix_q8_stacked`
-  (``csrc/decode_attention.cu``)
+  (``csrc/decode_attention_q8.cu``: the same two passes on the int8 cache)
 - K8 :func:`~.ragged_attention.ragged_paged_attention` and its thin
   wrappers ``paged_decode_attention`` and
-  ``paged_decode_attention_grouped`` (``csrc/ragged_paged_attention.cu``)
+  ``paged_decode_attention_grouped`` (``csrc/ragged_paged_attention.cu``:
+  the tile pass for the group run, the chunk and verify rows, the
+  split-KV pass on the page pool for decode rows)
 - K10 :func:`~.quant_matmul.quant4_matmul_2d`, the packed-int4 matmul
   (``csrc/quant4_matmul.cu``, the same wgmma kernel on packed weights, for
   bf16 x; ``csrc/quant_matmul.cu`` for float32 x)

@@ -3,7 +3,10 @@ decode and shared-prefix decode attention — the wrappers of
 ``csrc/causal_attention.cu``, ``csrc/decode_attention.cu`` and
 ``csrc/decode_attention_q8.cu`` and their twins. K3 and K4 are one
 split-KV pass (``csrc/decode_split.cuh``) on the dense and the int8 cache;
-:func:`decode_splits` picks its grid from the host-known shapes.
+:func:`decode_splits` picks its grid from the host-known shapes. K7 and
+K7-q8 run the tile pass (``csrc/decode_tile.cuh``) over the shared prefix,
+its splits from :func:`prefix_splits`, then the same split-KV pass over
+each row's own slots, its splits from :func:`suffix_splits`.
 
 They replace ``llm_consensus_tpu/ops/pallas/attention.py``'s
 ``flash_causal_attention``, ``flash_decode_attention``,
@@ -44,7 +47,9 @@ _MAX_THREADS = 512  # csrc/causal_attention.cu: kMaxThreads
 # csrc/causal_attention.cu's bf16 kernel: keys per tile, tiles in shared memory.
 _TC_KEYS = 64
 _TC_STAGES = 2
-_PREFIX_SPLIT = 64  # csrc/decode_attention.cu: kSplit
+# csrc/decode_tile.cuh, the tile pass of K7's prefix and K8's shared runs.
+_TILE_KEYS = 64  # kBK: slots a tile; a split of the run is a multiple
+_TILE_ROWS = 64  # kRows: (query, head) rows a bf16 block
 # csrc/decode_split.cuh, the split-KV pass of K3 and K4.
 _SPLIT_CHUNK = 32  # kChunk: slots a stage
 _SPLIT_MIN_SPAN = 128  # the floor on slots a split: a chunk for each of 4 warps
@@ -149,11 +154,75 @@ def decode_splits(b: int, hkv: int, s_max: int, blocks_per_sm: int = 2) -> tuple
     return -(-s_max // span), span
 
 
+@functools.lru_cache(maxsize=None)
+def suffix_splits(b: int, hkv: int, length: int, blocks_per_sm: int = 2) -> tuple[int, int]:
+    """(n_split, span) of the split-KV pass over K7's and K7-q8's suffix,
+    the ``length`` = S_max - prefix_len slots past the prefix: a sibling of
+    :func:`decode_splits` that picks the count first — one split for every
+    128 slots at most, and no more than ``blocks_per_sm`` blocks for each
+    of the H100's 132 SMs — then the span, the length over that count
+    rounded up to 32 slots. A fan-out's suffix is short (its decode budget),
+    so it takes one split, whose blocks merge the prefix's partials
+    themselves: no merge launch. From the host-known shapes only."""
+    length = max(int(length), 1)
+    target = -(-blocks_per_sm * _SMS // max(1, b * hkv))
+    n = max(1, min(target, length // _SPLIT_MIN_SPAN))
+    span = -(-length // (n * _SPLIT_CHUNK)) * _SPLIT_CHUNK
+    return -(-length // span), span
+
+
 def decode_workspace(b: int, h: int, d: int, n_split: int) -> int:
     """Float32 elements of the split-KV workspace: each split's max and sum
     and unnormalised output for every (row, query head); none for one
     split."""
     return n_split * b * h * (d + 2) if n_split > 1 else 0
+
+
+def prefix_splits(b: int, h: int, hkv: int, prefix_len: int) -> tuple[int, int]:
+    """(n_pre, pre_span) of K7's prefix pass (csrc/decode_tile.cuh, grid
+    (Hkv, row tiles, n_pre)): split z reads prefix slots [z * pre_span,
+    (z + 1) * pre_span). The span is the fewest whole 64-slot tiles that
+    keep each (kv head, row tile) to ceil(132 / their count) splits, about
+    one wave over the H100's 132 SMs (row tiles counted at 64 (row, head)
+    rows a block); (0, 64) without a prefix. From the host-known shapes
+    only."""
+    if prefix_len <= 0:
+        return 0, _TILE_KEYS
+    tiles = -(-b * (h // hkv) // _TILE_ROWS)
+    target = -(-_SMS // (hkv * tiles))
+    span = max(_TILE_KEYS, -(-prefix_len // (target * _TILE_KEYS)) * _TILE_KEYS)
+    return -(-prefix_len // span), span
+
+
+def shared_prefix_workspace(b: int, h: int, d: int, n_pre: int, n_split: int) -> int:
+    """Float32 elements of K7's workspace: the prefix splits' partials
+    (max, sum, unnormalised output for every (row, query head)), then the
+    suffix's split-KV partials (none for one split, whose blocks merge the
+    prefix's partials themselves)."""
+    return (n_pre + (n_split if n_split > 1 else 0)) * b * h * (d + 2)
+
+
+def _launch_shared_prefix(entry, q, cache, valid_len, prefix_len, dims):
+    """Launch K7 (``cache`` (k, v)) or K7-q8 (``cache`` (k_q, k_scale, v_q,
+    v_scale)): the prefix's and the suffix's splits from the shapes, one
+    workspace for both, the C entry point. Returns (out, the entry's
+    return code)."""
+    b, s_max, h, hkv, d = dims
+    if not 0 <= prefix_len <= s_max:
+        raise ValueError(f"prefix_len {prefix_len} outside [0, {s_max}]")
+    n_pre, pre_span = prefix_splits(b, h, hkv, prefix_len)
+    n_split, span = suffix_splits(
+        b, hkv, s_max - prefix_len, decode_blocks_per_sm(cache[0].element_size(), d, h // hkv))
+    n_ws = shared_prefix_workspace(b, h, d, n_pre, n_split)
+    ws = torch.empty(n_ws, dtype=torch.float32, device=q.device) if n_ws else None
+    out = torch.empty_like(q)
+    rc = entry(
+        q.data_ptr(), *(t.data_ptr() for t in cache), valid_len.data_ptr(), out.data_ptr(),
+        0 if ws is None else ws.data_ptr(),
+        b, s_max, h, hkv, d, prefix_len, n_pre, pre_span, n_split, span, float(d ** -0.5),
+        _DTYPES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    return out, rc
 
 
 def _launch_split(name, entry, q, cache, valid_len, dims):
@@ -308,8 +377,10 @@ def flash_decode_attention_shared_prefix(
     slots [0, prefix_len) hold the same K/V, so the kernel reads them
     once (from row 0) for all rows and each row reads only its slots
     [prefix_len, valid_len). CPU tensors take the plain twin; CUDA
-    tensors launch the kernel (a prefix pass, then the rows' suffix pass
-    that merges both).
+    tensors launch the kernel: the tile pass over the prefix
+    (:func:`prefix_splits`), then the split-KV pass over the rows' own
+    slots (:func:`suffix_splits` over S_max - prefix_len), which merges
+    both; the caches must be 16-byte aligned.
     """
     prefix_len = int(prefix_len)
     if not q.is_cuda:
@@ -319,18 +390,11 @@ def flash_decode_attention_shared_prefix(
     b, s_max, h, hkv, d = _check_decode(
         "flash_decode_attention_shared_prefix", q, k_cache, v_cache, valid_len
     )
-    if not 0 <= prefix_len <= s_max:
-        raise ValueError(f"prefix_len {prefix_len} outside [0, {s_max}]")
-    n_split = -(-prefix_len // _PREFIX_SPLIT)
-    ws = torch.empty(max(1, n_split * b * h * (d + 2)), dtype=torch.float32, device=q.device)
-    lib = build.load_library()
-    out = torch.empty_like(q)
-    rc = lib.lct_shared_prefix_attention(
-        q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-        valid_len.data_ptr(), out.data_ptr(), ws.data_ptr(),
-        b, s_max, h, hkv, d, prefix_len, float(d ** -0.5), _DTYPES[q.dtype],
-        torch.cuda.current_stream(q.device).cuda_stream,
-    )
+    if k_cache.data_ptr() % 16 or v_cache.data_ptr() % 16:
+        raise ValueError("flash_decode_attention_shared_prefix needs the caches 16-byte aligned")
+    out, rc = _launch_shared_prefix(
+        build.load_library().lct_shared_prefix_attention, q, (k_cache, v_cache), valid_len,
+        prefix_len, (b, s_max, h, hkv, d))
     build.check(rc, "shared_prefix_attention")
     flash_decode_attention_shared_prefix.launches += 1
     return out
@@ -443,18 +507,10 @@ def _launch_q8(name, q, k_q, k_scale, v_q, v_scale, valid_len, prefix_len=None):
     if prefix_len is None:
         return _launch_split("decode_attention_q8", lib.lct_decode_attention_q8,
                              q, (k_q, k_scale, v_q, v_scale), valid_len, dims)
-    b, s_max, h, hkv, d = dims
-    out = torch.empty_like(q)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    if not 0 <= prefix_len <= s_max:
-        raise ValueError(f"prefix_len {prefix_len} outside [0, {s_max}]")
-    n_split = -(-prefix_len // _PREFIX_SPLIT)
-    ws = torch.empty(max(1, n_split * b * h * (d + 2)), dtype=torch.float32, device=q.device)
-    rc = lib.lct_shared_prefix_attention_q8(
-        q.data_ptr(), k_q.data_ptr(), k_scale.data_ptr(), v_q.data_ptr(),
-        v_scale.data_ptr(), valid_len.data_ptr(), out.data_ptr(), ws.data_ptr(),
-        b, s_max, h, hkv, d, prefix_len, float(d ** -0.5), _DTYPES[q.dtype], stream,
-    )
+    if k_q.data_ptr() % 16 or v_q.data_ptr() % 16:
+        raise ValueError(f"{name} needs the K and V caches 16-byte aligned")
+    out, rc = _launch_shared_prefix(lib.lct_shared_prefix_attention_q8, q,
+                                    (k_q, k_scale, v_q, v_scale), valid_len, prefix_len, dims)
     build.check(rc, "shared_prefix_attention_q8")
     return out
 
@@ -520,8 +576,8 @@ def flash_decode_attention_shared_prefix_q8(
     every row's slots [0, prefix_len) hold the same K/V, so the kernel
     reads them once (from row 0) for all rows and each row reads only its
     slots [prefix_len, valid_len). CPU tensors take the plain twin; CUDA
-    tensors launch the kernel (a prefix pass, then the rows' suffix pass
-    that merges both)."""
+    tensors launch the kernel, as :func:`flash_decode_attention_shared_prefix`
+    does."""
     prefix_len = int(prefix_len)
     if not q.is_cuda:
         return flash_decode_attention_shared_prefix_q8_plain(

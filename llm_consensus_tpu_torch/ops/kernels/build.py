@@ -40,18 +40,18 @@ _SIGNATURES = {
     "lct_decode_attention": (
         _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _I, _P),
     "lct_shared_prefix_attention": (
-        _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _P),
+        _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _I, _P),
     "lct_decode_attention_q8": (
         _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _I, _P),
     "lct_shared_prefix_attention_q8": (
-        _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _P),
+        _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _I, _P),
     "lct_quant_matmul": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     "lct_quant4_matmul": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     "lct_quant_matmul_wg": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
     "lct_quant4_matmul_wg": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
     "lct_ragged_paged_attention": (
         _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-        _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _I, _I, _P),
+        _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _I, _I, _P),
 }
 
 _lib: ctypes.CDLL | None = None

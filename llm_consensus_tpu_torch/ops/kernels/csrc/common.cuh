@@ -150,3 +150,53 @@ __device__ __forceinline__ void lct_mbar_wait(uint64_t* bar, unsigned parity) {
         : "=r"(done) : "r"(addr), "r"(parity) : "memory");
   } while (!done);
 }
+
+// ---------------------------------------------------------------------------
+// Programmatic dependent launches (Hopper): a chain of kernels on one stream
+// whose later members start while the earlier ones run.
+// ---------------------------------------------------------------------------
+
+// Lets the next kernel of the stream, if it was launched as a programmatic
+// dependent, start its blocks now.
+__device__ __forceinline__ void lct_pdl_trigger() {
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+}
+// Waits until the kernel this one was launched after has finished and its
+// writes are visible; returns at once when this kernel was launched
+// normally. A dependent calls it before it reads what that kernel wrote,
+// and on every path before it exits, so that its own end implies the
+// earlier kernel's (what a chain of three relies on).
+__device__ __forceinline__ void lct_pdl_wait() {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+}
+
+// Launches kernel<<<grid, block, smem, stream>>>(args...), as a programmatic
+// dependent of the stream's previous kernel when `dependent`; returns the
+// launch's error code.
+template <typename... KArgs, typename... Args>
+int lct_launch(void (*kernel)(KArgs...), dim3 grid, dim3 block, int smem, cudaStream_t stream,
+               bool dependent, Args... args) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = block;
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = dependent ? 1 : 0;
+  return (int)cudaLaunchKernelEx(&cfg, kernel, static_cast<KArgs>(args)...);
+}
+
+// Opts a kernel in to `smem` bytes of dynamic shared memory (above 48 KB
+// needs it), once per kernel.
+template <typename K>
+int lct_smem_opt_in(K kernel, int smem, bool& done) {
+  if (done || smem <= 48 * 1024) return 0;
+  const cudaError_t rc =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (rc != cudaSuccess) return (int)rc;
+  done = true;
+  return 0;
+}

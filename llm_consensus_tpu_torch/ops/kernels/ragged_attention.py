@@ -36,8 +36,35 @@ _TYPE_PAIRS = {
 }
 _HEAD_DIMS = (16, 32, 64, 128)
 _GROUPS = (1, 2, 4, 8)
-_MAX_ROWS = 256  # csrc/ragged_paged_attention.cu: kMaxRows
-_SPLIT = 64  # csrc/ragged_paged_attention.cu: kSplit
+_MAX_ROWS = 256  # csrc/decode_tile.cuh: kMaxRows, the rows the group pass scans
+_GROUP_SPAN = 64  # csrc/ragged_paged_attention.cu: kGroupSpan, slots a split of a group's run
+_RAGGED_SPAN = 128  # slots a split of K8's decode rows: one 32-slot chunk a warp
+
+
+def ragged_splits(table_slots: int) -> tuple[int, int]:
+    """(n_split, span) of K8's decode rows on the split-KV pass: the pass's
+    shortest span, 128 slots (one chunk for each of a block's 4 warps), over
+    the table's width P * page, the only length the host knows without
+    reading the card. A row holds an unknown share of its table (the
+    serving burst's 300-556 of 2048), so the span is not cut to reach a
+    grid size, as K3's rule does (``decode_splits``): the shortest spreads
+    any live length over the most blocks, and a split past a row's length
+    costs an empty partial. It timed fastest, or within 1% of it, on
+    every case swept on the H100 (``scripts/torch_k10_sweep.py k8``,
+    PERF.md §6). It depends on no batch size, so K9's shards split a row
+    where the unsharded K8 does."""
+    return -(-max(int(table_slots), 1) // _RAGGED_SPAN), _RAGGED_SPAN
+
+
+def ragged_workspace(b: int, nq: int, h: int, d: int, table_slots: int, groups: bool,
+                     n_split: int) -> int:
+    """Float32 elements of K8's workspace: with groups, every query's
+    partial (max, sum, unnormalised output) for each 64-slot split of the
+    table; then, for decode rows (NQ = 1) on more than one split, the
+    split-KV partials."""
+    n_x = -(-table_slots // _GROUP_SPAN) if groups else 0
+    n_rows = n_split if nq == 1 and n_split > 1 else 0
+    return (n_x * nq + n_rows) * b * h * (d + 2)
 
 
 def _partial(scores, mask, v):
@@ -187,8 +214,10 @@ def ragged_paged_attention(
     ``q_chunk``), in q's dtype.
 
     CPU tensors take the plain twin; CUDA tensors launch the kernel (up
-    to three launches: group pass, decode rows, chunk row), counted once
-    per call in ``ragged_paged_attention.launches``.
+    to four launches: group pass, chunk row, decode rows (the split-KV
+    pass and its merge, :func:`ragged_splits`) or verify rows), counted
+    once per call in ``ragged_paged_attention.launches``. The pools must be
+    16-byte aligned.
     """
     if not q.is_cuda:
         return ragged_paged_attention_plain(
@@ -235,9 +264,10 @@ def ragged_paged_attention(
             raise ValueError(f"q_chunk must be [C, {h}, {d}], got {list(q_chunk.shape)}")
         _check_int("chunk_table", chunk_table, (p_per,))
         chunk_start = int(chunk_start)
+    if k_pool.data_ptr() % 16 or v_pool.data_ptr() % 16:
+        raise ValueError("ragged_paged_attention needs the pools 16-byte aligned")
     gm = 0
     gid = rep = gend = sstart = None
-    ws = None
     if groups is not None:
         gid, rep, gend, sstart = groups
         gm = rep.shape[0]
@@ -245,10 +275,10 @@ def ragged_paged_attention(
         _check_int("group_rep", rep, (gm,))
         _check_int("group_end", gend, (gm,))
         _check_int("shared_start", sstart, (b,))
-        n_split = -(-(p_per * pg) // _SPLIT)
-        ws = torch.empty(
-            max(1, n_split * b * nq * h * (d + 2)), dtype=torch.float32, device=q.device
-        )
+    slots = p_per * pg
+    n_split, span = ragged_splits(slots)
+    n_ws = ragged_workspace(b, nq, h, d, slots, gm > 0, n_split)
+    ws = torch.empty(n_ws, dtype=torch.float32, device=q.device) if n_ws else None
     out = torch.empty_like(q)
     out_chunk = None if q_chunk is None else torch.empty_like(q_chunk)
 
@@ -260,7 +290,7 @@ def ragged_paged_attention(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), page_table.data_ptr(),
         valid_len.data_ptr(), ptr(q_chunk), ptr(chunk_table), ptr(gid), ptr(rep),
         ptr(gend), ptr(sstart), out.data_ptr(), ptr(out_chunk), ptr(ws),
-        b, nq, h, hkv, d, pg, p_per, c, chunk_start or 0, gm, int(window),
+        b, nq, h, hkv, d, pg, p_per, c, chunk_start or 0, gm, int(window), n_split, span,
         float(d**-0.5), _DTYPES[q.dtype], _DTYPES[k_pool.dtype],
         torch.cuda.current_stream(q.device).cuda_stream,
     )
@@ -364,8 +394,8 @@ def ragged_paged_attention_sharded(
     members. A group with no member on this shard costs no reads and
     changes no output: K8's group pass compacts the group's members from
     ``group_id`` and a block with no member query returns before it reads
-    a page (``csrc/ragged_paged_attention.cu``, the group pass), and the
-    twin masks such a group out. Then K8 runs on the local shard, the
+    a page (``csrc/decode_tile.cuh``, the group pass), and the twin masks
+    such a group out. Then K8 runs on the local shard, the
     chunk output is zeroed on the shards that do not own the chunk (the
     owner is the shard whose range holds ``chunk_table[0]``) and summed
     over ``data``.

@@ -42,6 +42,8 @@ from llm_consensus_tpu_torch.ops.kernels import norms as kn
 from llm_consensus_tpu_torch.ops.kernels import quant_matmul as kq
 from llm_consensus_tpu_torch.parallel.mesh import Mesh, MeshConfig
 
+import torch_kernel_emulation as emu  # tests/: the split-KV and tile passes' arithmetic
+
 F32_TOL = dict(rtol=2e-5, atol=2e-5)
 BF16_TOL = dict(rtol=2.0**-8, atol=2.0**-8)
 ROOT = pathlib.Path(__file__).resolve().parents[1]
@@ -348,6 +350,174 @@ def test_shared_prefix_bf16_within_one_rounding_of_fp32_oracle():
     oracle = ka.flash_decode_attention_shared_prefix(
         q.float(), kc.float(), vc.float(), valid, 70)
     np.testing.assert_allclose(got.float().numpy(), oracle.numpy(), **BF16_TOL)
+
+
+# ---------------------------------------------------------------------------
+# K7, K7-q8: the prefix on the tile pass, the suffix on the split-KV pass
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("b", [1, 8, 64])
+@pytest.mark.parametrize("hkv", [1, 8])
+def test_k7_prefix_split_rule(b, hkv):
+    """K7's prefix splits (csrc/decode_tile.cuh's grid (Hkv, row tiles,
+    n_pre)): whole 64-slot tiles, every prefix slot covered once, the
+    shortest span that keeps the grid to about one wave over the H100's
+    132 SMs (or one tile); none without a prefix. The suffix takes K3's rule over S_max - prefix_len.
+    The workspace holds both splits' partials, as the C entry point says."""
+    src = (ROOT / "llm_consensus_tpu_torch/ops/kernels/csrc/decode_attention.cu").read_text()
+    assert "(n_pre + (n_split > 1 ?\n// n_split : 0)) * B * H * (D + 2)" in src
+    h = 2 * hkv
+    tiles = -(-b * 2 // 64)
+    assert ka.prefix_splits(b, h, hkv, 0)[0] == 0
+    for plen in (1, 31, 64, 100, 115, 243, 1000, 2176, 8192):
+        n, span = ka.prefix_splits(b, h, hkv, plen)
+        assert span % 64 == 0 and span >= 64
+        assert n * span >= plen > (n - 1) * span
+        target = -(-132 // (hkv * tiles))  # splits for one wave of 132 blocks
+        assert n <= target or span == 64
+        if span > 64:  # the shortest such span: one tile less makes too many splits
+            assert -(-plen // (span - 64)) > target
+        for n_split in (1, 3):  # the prefix's partials, then the suffix's
+            want = (n + (n_split if n_split > 1 else 0)) * b * h * 130
+            assert ka.shared_prefix_workspace(b, h, 128, n, n_split) == want
+
+
+@pytest.mark.parametrize("b", [1, 8, 64])
+@pytest.mark.parametrize("hkv", [1, 8])
+def test_k7_suffix_split_rule(b, hkv):
+    """K7's suffix splits (the split-KV pass over [prefix_len, S_max)):
+    whole 32-slot chunks covering the suffix once, at most one split for
+    every 128 slots and at most two blocks an SM's worth; a suffix shorter
+    than 256 slots (a fan-out's decode budget) takes one split, so its
+    blocks merge the prefix's partials themselves and no merge launches."""
+    for length in (0, 1, 31, 45, 141, 300, 1176, 2061, 8192):
+        n, span = ka.suffix_splits(b, hkv, length, 2)
+        assert span % 32 == 0
+        assert n * span >= max(length, 1) > (n - 1) * span
+        assert n <= max(1, length // 128) and n <= -(-264 // (b * hkv))
+        if length < 256:
+            assert n == 1
+
+
+def _tile_smem(elem_bytes, d):
+    """csrc/decode_tile.cuh's mma_smem_bytes: two stages of a 64-slot bf16
+    K and V tile, rows padded by 16 bytes; for the int8 cache two byte
+    stages, their scales and one bf16 K and V tile."""
+    tile = 64 * (d + 8) * 2
+    if elem_bytes == 1:
+        return 2 * 2 * 64 * d + 2 * 2 * 64 * 4 + 2 * tile
+    return 2 * 2 * tile
+
+
+@pytest.mark.parametrize("elem_bytes", [1, 2])
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+def test_tile_pass_shared_memory(elem_bytes, d):
+    """The tensor-core tile pass's blocks (its dynamic shared memory and
+    the group scan's 1 KB) leave room for three an SM at every head_dim;
+    the CUDA-core form's static shared memory stays under 48 KB."""
+    cuh = (ROOT / "llm_consensus_tpu_torch/ops/kernels/csrc/decode_tile.cuh").read_text()
+    assert "return kStages * 2 * kBK * D + kStages * 2 * kBK * 4 + 2 * kTile;" in cuh
+    assert "return kStages * 2 * kTile;" in cuh and "constexpr int kBK = 64;" in cuh
+    smem = _tile_smem(elem_bytes, d) + 4 * 257
+    assert 3 * (smem + 1024) <= 233472
+    for cc_elem in (1, 2, 4):  # sk, sv, the scales, sq, the group scan
+        cc = 32 * (d + 16 // cc_elem) * cc_elem + 32 * d * cc_elem + 2 * 32 * 4 + 16 * d * 4
+        assert cc + 4 * 257 <= 48 * 1024
+
+
+@pytest.mark.parametrize("b,h,hkv,d,s_max,plen,valid", [
+    (3, 8, 2, 128, 300, 100, [100, 300, 150]),  # a prefix inside a tile; a row with no suffix
+    (2, 8, 4, 128, 200, 200, [200, 200]),  # prefix_len == S_max: no suffix splits at all
+    (1, 8, 1, 128, 700, 250, [700]),  # G = 8, one row, four suffix splits
+    (4, 16, 8, 128, 256, 115, [179, 179, 200, 256]),  # the fan-out's prefix (N cut to 4)
+])
+def test_k7_prefix_and_suffix_emulated_matches_twin_and_jax(b, h, hkv, d, s_max, plen, valid):
+    rng = np.random.default_rng(plen + s_max)
+    q = rng.standard_normal((b, 1, h, d)).astype(np.float32)
+    kc, vc = _shared_cache(rng, b, s_max, hkv, d, plen)
+    valid = np.array(valid, np.int32)
+    tq, tk, tv, tvl = _t(q), _t(kc), _t(vc), torch.from_numpy(valid)
+    got = emu.shared_prefix(tq, tk.transpose(1, 2), tv.transpose(1, 2), tvl, plen).numpy()
+    twin = ka.flash_decode_attention_shared_prefix_plain(tq, tk, tv, tvl, plen).numpy()
+    pallas = _np(j_flash_shared_prefix(*map(jnp.asarray, (q, kc, vc, valid)), jnp.int32(plen),
+                                       interpret=True))
+    np.testing.assert_allclose(got, twin, rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(got, pallas, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("b,h,hkv,d,s_max,plen,valid", [
+    (3, 8, 2, 32, 300, 100, [100, 300, 150]),
+    (2, 8, 4, 16, 200, 200, [200, 200]),
+    (1, 8, 1, 64, 700, 250, [700]),
+    (4, 16, 8, 16, 256, 115, [179, 179, 200, 256]),
+])
+def test_k7q8_prefix_and_suffix_emulated_matches_twin_and_jax(b, h, hkv, d, s_max, plen, valid):
+    rng = np.random.default_rng(plen + s_max + 1)
+    q = rng.standard_normal((b, 1, h, d)).astype(np.float32)
+    kv = []
+    for _ in range(2):
+        x = rng.standard_normal((b, hkv, s_max, d)).astype(np.float32)
+        x[:, :, :plen] = x[:1, :, :plen]
+        kv += [np.asarray(a) for a in j_cache.quantize_kv(jnp.asarray(x))]
+    valid = np.array(valid, np.int32)
+    t = [torch.from_numpy(np.array(a)) for a in (*kv, valid)]
+    got = emu.shared_prefix(_t(q), t[0], t[2], t[4], plen, t[1], t[3], elem_bytes=1).numpy()
+    twin = ka.flash_decode_attention_shared_prefix_q8_plain(_t(q), *t, plen).numpy()
+    pallas = _np(j_pattn.flash_decode_attention_shared_prefix_q8(
+        jnp.asarray(q), *map(jnp.asarray, (*kv, valid)), jnp.int32(plen), interpret=True))
+    np.testing.assert_allclose(got, twin, rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(got, pallas, rtol=1e-5, atol=1e-5)
+
+
+def _tile_bf16_err_over_tol(kind, split_p=True, seed=3):
+    """The tensor-core tile pass's arithmetic (tests/torch_kernel_emulation.
+    tile_bf16) on 64 bf16 (query, head) rows of llama-1b's head_dim over a
+    243-slot run, against a float32 oracle on the same inputs, in units of
+    the bf16 tolerance (one bf16 ulp of each element plus 1e-5). kind:
+    "dense" (bf16 K/V, K7's prefix and K8's group run), "q8" (the int8
+    cache and its scales, K7-q8's prefix), "ragged" (bf16 K/V under K8's
+    ragged-causal mask and a window, its chunk and verify rows)."""
+    gen = torch.Generator().manual_seed(seed)
+    r, s, d = 64, 243, 128
+    q = torch.randn(r, d, generator=gen).to(torch.bfloat16)
+    k_scale = v_scale = None
+    if kind == "q8":
+        k, k_scale = quantize_kv(torch.randn(1, 1, s, d, generator=gen))
+        v, v_scale = quantize_kv(torch.randn(1, 1, s, d, generator=gen))
+        k, v, k_scale, v_scale = k[0, 0], v[0, 0], k_scale[0, 0], v_scale[0, 0]
+        kf, vf = k.float() * k_scale[:, None], v.float()
+    else:
+        k = torch.randn(s, d, generator=gen).to(torch.bfloat16)
+        v = torch.randn(s, d, generator=gen).to(torch.bfloat16)
+        kf, vf = k.float(), v.float()
+    lo, hi = torch.zeros(r, dtype=torch.long), torch.full((r,), s)
+    if kind == "ragged":  # positions s - 64 + i, a window of 100
+        pos = s - r + torch.arange(r)
+        lo, hi = pos + 1 - 100, pos + 1
+    m, l, acc = emu.tile_bf16(q, k, v, lo, hi, int(lo.min().clamp(min=0)), s, k_scale, v_scale,
+                              split_p=split_p)
+    got = (acc / l[:, None]).to(torch.bfloat16)
+    slot = torch.arange(s)
+    sc = (q.float() @ kf.T) * d**-0.5
+    sc = sc.masked_fill((slot[None] < lo[:, None]) | (slot[None] >= hi[:, None]), float("-inf"))
+    p = torch.softmax(sc.double(), -1)
+    oracle = (p @ (vf.double() if v_scale is None else vf.double() * v_scale.double()[:, None]))
+    ref = oracle.float().to(torch.bfloat16)
+    return float(((got.float() - ref.float()).abs() / _bf16_tolerance(ref)).max())
+
+
+@pytest.mark.parametrize("kind", ["dense", "q8", "ragged"])
+def test_tile_pass_bf16_scheme_within_bf16_tolerance(kind):
+    assert _tile_bf16_err_over_tol(kind) <= 1.0
+
+
+@pytest.mark.parametrize("kind", ["dense", "q8", "ragged"])
+def test_tile_pass_with_bf16_p_misses_bf16_tolerance(kind):
+    # Why the tile pass splits P into hi + lo, as K2 does: rounded to bf16
+    # alone, P's error in P * V is many bf16 ulps of the output (20-57x the
+    # tolerance here).
+    assert _tile_bf16_err_over_tol(kind, split_p=False) > 10.0
 
 
 # ---------------------------------------------------------------------------

@@ -16,6 +16,8 @@ package's, on the same numpy inputs.
   package reads the NULL page for them); their outputs are discarded.
 """
 
+import pathlib
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -34,7 +36,10 @@ from llm_consensus_tpu_torch.ops import attention as t_attn
 from llm_consensus_tpu_torch.ops import kernels
 from llm_consensus_tpu_torch.ops.kernels import ragged_attention as kr
 
+import torch_kernel_emulation as emu  # tests/: the split-KV and tile passes' arithmetic
+
 TOL = dict(rtol=1e-5, atol=1e-5)
+ROOT = pathlib.Path(__file__).resolve().parents[1]
 
 
 def _t(a, dtype=None):
@@ -265,6 +270,99 @@ def test_k8_twin_matches_jax_kernel_and_reference(name):
         np.testing.assert_allclose(a, np.asarray(r_), **TOL)
         np.testing.assert_allclose(rt, np.asarray(r_), **TOL)
         assert np.isfinite(a).all()
+
+
+def _k8_torch(kp, vp, q, tbl, vl, kw, groups):
+    tkw = {k: (v if k == "chunk_start" else _t(v)) for k, v in kw.items()}
+    tgroups = None if groups is None else tuple(
+        torch.tensor(x, dtype=torch.int32) for x in groups)
+    return (_t(q), _t(kp), _t(vp), _t(tbl), _t(vl)), tkw, tgroups
+
+
+@pytest.mark.parametrize("name", sorted(K8_CASES))
+def test_k8_launches_emulated_match_twin_and_jax_kernel(name):
+    """K8's launches as the card runs them (tests/torch_kernel_emulation.
+    ragged): the group pass's partials over 64-slot splits of the run, the
+    decode rows on the split-KV pass from their first slot (shared start,
+    window edge) with the group partials merged first, verify and chunk
+    rows on the tile pass; against the twin and the Pallas kernel in
+    interpret mode, 1e-5."""
+    spec = dict(K8_CASES[name])
+    window = spec.pop("window", 0)
+    kp, vp, q, tbl, vl, kw, groups = _k8_case(**spec)
+    args, tkw, tgroups = _k8_torch(kp, vp, q, tbl, vl, kw, groups)
+    got = emu.ragged(*args, groups=tgroups, window=window, **tkw)
+    twin = kr.ragged_paged_attention_plain(*args, groups=tgroups, window=window, **tkw)
+    jgroups = None if groups is None else tuple(
+        jnp.asarray(np.asarray(x, np.int32)) for x in groups)
+    jk = j_ragged(jnp.asarray(q), jnp.asarray(kp), jnp.asarray(vp), jnp.asarray(tbl),
+                  jnp.asarray(vl), groups=jgroups, window=window, interpret=True,
+                  **{k: jnp.asarray(v) for k, v in kw.items()})
+    if not kw:
+        got, twin, jk = (got,), (twin,), (jk,)
+    for a, t, k in zip(got, twin, jk):
+        np.testing.assert_allclose(a.numpy(), t.numpy(), **TOL)
+        np.testing.assert_allclose(a.numpy(), np.asarray(k), **TOL)
+
+
+def test_k8_split_rule_and_workspace():
+    """K8's decode rows on the split-KV pass: 128-slot splits (one chunk a
+    warp) covering the table's width once, whatever B is (K9's shards split
+    a row where the unsharded K8 does); the workspace the wrapper allocates
+    is the C entry point's: the group partials for every 64-slot split of
+    the table, then the decode splits' (none for one split or verify rows)."""
+    src = (ROOT / "llm_consensus_tpu_torch/ops/kernels/csrc/ragged_paged_attention.cu").read_text()
+    assert "(n_x * B * NQ + (NQ == 1 && n_split >\n// 1 ? n_split * B : 0)) * H * (D + 2)" in src
+    assert "constexpr int kGroupSpan = 64;" in src
+    for slots in (8, 48, 128, 512, 2048, 4096):
+        n, span = kr.ragged_splits(slots)
+        assert span == 128 and n * span >= slots > (n - 1) * span
+        n_x = -(-slots // 64)
+        for b, nq, groups in ((16, 1, True), (16, 1, False), (4, 3, True)):
+            want = (n_x * b * nq * groups + (n * b if nq == 1 and n > 1 else 0)) * 16 * 130
+            assert kr.ragged_workspace(b, nq, 16, 128, slots, groups, n) == want
+
+
+# Rows long enough for several splits of the decode rows' split-KV pass
+# (a 512-slot table: 4 splits of 128 at B = 1), windows whose edge falls
+# inside a split, shared starts and group ends that are not multiples of
+# 32, verify rows with groups.
+K8_LONG_CASES = {
+    "one_row_the_whole_table": dict(b=1, vl=(512,)),
+    "window_inside_a_split": dict(b=2, vl=(400, 300), window=77),
+    "shared_starts_and_group_ends_off_32": dict(
+        b=4, vl=(300, 111, 280, 512), groups=([0, -1, 0, 0], [0], [88], [88, 0, 88, 88])),
+    "verify_rows_with_groups": dict(
+        b=3, nq=4, vl=(300, 200, 130), window=100,
+        groups=([0, 0, -1], [0], [72], [72, 72, 0])),
+}
+
+
+@pytest.mark.parametrize("name", sorted(K8_LONG_CASES))
+def test_k8_long_rows_emulated_match_twin_and_reference(name):
+    """As the test above on rows long enough for several splits, against
+    the twin and the JAX package's reference (live rows)."""
+    spec = dict(K8_LONG_CASES[name])
+    window = spec.pop("window", 0)
+    rng = np.random.default_rng(len(name))
+    b, nq, hkv, g, d, pg, p_per = spec["b"], spec.get("nq", 0), 2, 2, 16, 16, 32
+    kp = rng.standard_normal((2 + b * p_per, pg, hkv, d)).astype(np.float32)
+    vp = rng.standard_normal(kp.shape).astype(np.float32)
+    q = rng.standard_normal((b, nq, hkv * g, d) if nq else (b, hkv * g, d)).astype(np.float32)
+    tbl = (1 + rng.permutation(b * p_per)).reshape(b, p_per).astype(np.int32)
+    groups = spec.get("groups")
+    if groups is not None:  # members map the representative's run
+        run_pages = -(-groups[2][0] // pg)
+        for r, gi in enumerate(groups[0]):
+            if gi >= 0:
+                tbl[r, :run_pages] = tbl[groups[1][gi], :run_pages]
+    vl = np.asarray(spec["vl"], np.int32)
+    args, _, tgroups = _k8_torch(kp, vp, q, tbl, vl, {}, groups)
+    got = emu.ragged(*args, groups=tgroups, window=window)
+    twin = kr.ragged_paged_attention_plain(*args, groups=tgroups, window=window)
+    ref = j_ref(*map(jnp.asarray, (q, kp, vp, tbl, vl)), window=window)
+    np.testing.assert_allclose(got.numpy(), twin.numpy(), **TOL)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), **TOL)
 
 
 def test_k8_thin_wrappers_match_the_ragged_call():
