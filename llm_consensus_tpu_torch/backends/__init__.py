@@ -6,12 +6,20 @@ from llm_consensus_tpu_torch.backends.base import (
     SamplingParams,
 )
 from llm_consensus_tpu_torch.backends.fake import FakeBackend, ScriptedBackend
+from llm_consensus_tpu_torch.backends.fault import (
+    FaultConfig,
+    FaultInjectingBackend,
+    FaultStats,
+)
 
 __all__ = [
     "Backend",
     "BackendError",
     "ContinuousBackend",
     "FakeBackend",
+    "FaultConfig",
+    "FaultInjectingBackend",
+    "FaultStats",
     "GenerationRequest",
     "GenerationResult",
     "SamplingParams",

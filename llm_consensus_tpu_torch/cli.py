@@ -2,7 +2,8 @@
 
 ``python -m llm_consensus_tpu_torch --backend {fake,local,continuous}
 --model llama-1b --question "..." [--quant {none,int8,int4}]
-[--max-new-tokens N] [--temperature T] [--seed S] [--cpu]``
+[--max-new-tokens N] [--temperature T] [--seed S] [--cpu]
+[--hf-checkpoint DIR] [--tokenizer DIR]``
 
 ``python -m llm_consensus_tpu_torch --plan --model llama3-8b [--plan-n 64]
 [--plan-context 2048] [--plan-quant {none,int8,int4}] [--plan-kv
@@ -14,8 +15,11 @@ The flags are the JAX package's (``llm_consensus_tpu/cli.py``) for the
 surfaces ported so far. Without ``--question`` it runs the reference's REPL
 (``src/main.rs:428-471``): prompt ``"Enter a question: "``, ``exit``
 terminates. The local and continuous backends run on the card unless
-``--cpu`` is given; without a checkpoint loader ported yet, their weights
-are random, made from ``--seed``. ``--quant int8`` quantizes them to int8
+``--cpu`` is given. Their weights come from ``--hf-checkpoint`` (an HF
+safetensors directory whose ``config.json`` gives the model config) or
+are random, made from ``--seed``; ``--tokenizer`` names a local HF
+tokenizer directory (the byte tokenizer otherwise). ``--quant int8``
+quantizes the weights to int8
 (the W8A16 kernel), ``--quant int4`` to packed int4 (the W4A16 kernel).
 ``--backend continuous`` serves the panel through the continuous batcher
 (``--serve-slots``, ``--prefill-chunk``, ``--no-share-prefix``,
@@ -48,21 +52,14 @@ from llm_consensus_tpu_torch.consensus.coordinator import (
 )
 from llm_consensus_tpu_torch.consensus.personas import default_panel, load_panel
 
+from llm_consensus_tpu_torch.utils.logging import setup_logging
+
 log = logging.getLogger("llm_consensus_tpu_torch")
 
 # ``--plan-hbm-gib``'s default: the device memory of one NVIDIA H100 80GB
 # HBM3, torch.cuda.get_device_properties(0).total_memory as chip_smoke.py
 # prints it there.
 H100_TOTAL_MEMORY = 85_017_493_504
-
-
-def _init_logging() -> None:
-    """Level from the ``LLM_CONSENSUS_LOG`` env var (default info)."""
-    level = os.environ.get("LLM_CONSENSUS_LOG", "info").upper()
-    logging.basicConfig(
-        level=getattr(logging, level, logging.INFO),
-        format="[%(asctime)s %(levelname)s %(name)s] %(message)s",
-    )
 
 
 def _printable(text: str) -> str:
@@ -73,22 +70,47 @@ def _printable(text: str) -> str:
     )
 
 
-def _build_backend(args):
-    if args.backend == "fake":
-        return FakeBackend()
-    from llm_consensus_tpu_torch.backends.local import LocalBackend
-    from llm_consensus_tpu_torch.engine.engine import EngineConfig, InferenceEngine
-    from llm_consensus_tpu_torch.models.configs import get_config
-    from llm_consensus_tpu_torch.models.transformer import init_params
+def _model(args, device):
+    """(config, params): from ``--hf-checkpoint``, or random weights of
+    the ``--model`` preset from ``--seed`` (with ``--quant``, drawn and
+    quantized a matrix at a time on the device: mixtral-8x7b's bf16 tree
+    would not fit one card)."""
+    if args.hf_checkpoint:
+        from llm_consensus_tpu_torch.models.hf_loader import (
+            config_from_hf,
+            load_hf_params,
+        )
 
-    device = "cpu" if args.cpu else None
+        cfg = config_from_hf(args.hf_checkpoint, name=args.model)
+        return cfg, load_hf_params(cfg, args.hf_checkpoint, device=device)
+    from llm_consensus_tpu_torch.models.configs import get_config
+    from llm_consensus_tpu_torch.models.transformer import (
+        init_params,
+        init_params_quantized,
+    )
+
     cfg = get_config(args.model)
     log.warning(
         "Using RANDOM weights for %s (protocol/e2e plumbing only; text "
         "will be gibberish).",
         cfg.name,
     )
-    params = init_params(cfg, args.seed or 0, device=device)
+    if args.quant == "none":
+        return cfg, init_params(cfg, args.seed or 0, device=device)
+    return cfg, init_params_quantized(
+        cfg, args.seed or 0, bits=8 if args.quant == "int8" else 4, device=device)
+
+
+def _build_backend(args):
+    if args.backend == "fake":
+        return FakeBackend()
+    from llm_consensus_tpu_torch.backends.local import LocalBackend
+    from llm_consensus_tpu_torch.engine.engine import EngineConfig, InferenceEngine
+    from llm_consensus_tpu_torch.engine.tokenizer import load_tokenizer
+
+    device = "cpu" if args.cpu else None
+    cfg, params = _model(args, device)
+    tokenizer = load_tokenizer(args.tokenizer)
     if args.backend == "continuous":
         from llm_consensus_tpu_torch.serving.continuous import (
             ContinuousBackend,
@@ -97,13 +119,14 @@ def _build_backend(args):
 
         return ContinuousBackend(
             ContinuousBatcher(
-                cfg, _serving_params(args, params), config=_serving_config(args),
-                device=device,
+                cfg, _serving_params(args, params), tokenizer=tokenizer,
+                config=_serving_config(args), device=device,
             )
         )
     engine = InferenceEngine(
         cfg,
         params,
+        tokenizer=tokenizer,
         engine_config=EngineConfig(
             max_new_tokens=args.max_new_tokens, quant=args.quant
         ),
@@ -141,8 +164,7 @@ def mesh_rank(argv: list[str]) -> int:
     other ranks run its worker loop until rank 0 closes it."""
     import torch
 
-    from llm_consensus_tpu_torch.models.configs import get_config
-    from llm_consensus_tpu_torch.models.transformer import init_params
+    from llm_consensus_tpu_torch.engine.tokenizer import load_tokenizer
     from llm_consensus_tpu_torch.parallel.mesh import MeshConfig, make_mesh
     from llm_consensus_tpu_torch.serving.continuous import (
         ContinuousBackend,
@@ -150,7 +172,7 @@ def mesh_rank(argv: list[str]) -> int:
         serve_worker,
     )
 
-    _init_logging()
+    setup_logging()
     args = build_parser().parse_args(argv)
     if args.cpu:
         device = torch.device("cpu")
@@ -162,19 +184,18 @@ def mesh_rank(argv: list[str]) -> int:
         device = torch.device("cuda", local % torch.cuda.device_count())
         torch.cuda.set_device(device)
     mesh = make_mesh(MeshConfig(**_parse_axes(args.mesh)), device=device)
-    cfg = get_config(args.model)
-    # Every rank makes the same full tree from the seed; each keeps its shard.
-    params = _serving_params(args, init_params(cfg, args.seed or 0, device=device))
+    # Every rank loads (or makes from the seed) the same full tree; each
+    # keeps its shard.
+    cfg, params = _model(args, device)
+    params = _serving_params(args, params)
     if mesh.rank != 0:
         serve_worker(cfg, params, _serving_config(args), mesh)
         return 0
-    log.warning(
-        "Using RANDOM weights for %s on a %s mesh over %s (protocol/e2e "
-        "plumbing only; text will be gibberish).", cfg.name, args.mesh, args.dist_backend,
-    )
-    backend = ContinuousBackend(
-        ContinuousBatcher(cfg, params, config=_serving_config(args), mesh=mesh)
-    )
+    log.info("serving %s on a %s mesh over %s", cfg.name, args.mesh, args.dist_backend)
+    backend = ContinuousBackend(ContinuousBatcher(
+        cfg, params, tokenizer=load_tokenizer(args.tokenizer),
+        config=_serving_config(args), mesh=mesh,
+    ))
     try:
         return _run_coordinator(args, backend)
     finally:
@@ -274,6 +295,13 @@ def build_parser() -> argparse.ArgumentParser:
         "per rank, gloo for several ranks on one card or on the CPU",
     )
     p.add_argument("--model", default="llama-1b", help="model preset name")
+    p.add_argument(
+        "--hf-checkpoint",
+        default=None,
+        help="HF safetensors checkpoint dir (config.json derives the "
+        "model config; overrides --model's preset)",
+    )
+    p.add_argument("--tokenizer", default=None, help="local HF tokenizer dir")
     p.add_argument("--panel", default=None, help="panel JSON file")
     p.add_argument(
         "--quant",
@@ -399,7 +427,7 @@ async def repl(coord: Coordinator, stream=None) -> None:
 
 
 def main(argv: list[str] | None = None) -> int:
-    _init_logging()
+    setup_logging()
     argv = sys.argv[1:] if argv is None else list(argv)
     args = build_parser().parse_args(argv)
     if args.plan:

@@ -20,7 +20,15 @@ default as in the JAX package); off, each row reads its whole cache.
 Both give the same outputs.
 
 ``kv_quant`` keeps the cache in int8 (``QuantKVCache``, a float32 scale
-per token and kv head), as the JAX package's ``kv_quant``.
+per token and kv head), as the JAX package's ``kv_quant``;
+``prefill_chunk`` prefills prompts longer than it in chunks
+(``prefill_chunked``).
+
+Besides :func:`generate`: :func:`generate_from_prefix` (continue from a
+prefilled shared prefix, the prefix cache's path), :func:`decode_steps`
+(a fixed number of decode steps from a held cache: streaming and the
+multi-token-stop path) and :func:`score_completions` (teacher-forced
+log-probabilities of completions).
 """
 
 from __future__ import annotations
@@ -30,9 +38,16 @@ from dataclasses import dataclass
 import torch
 
 from llm_consensus_tpu_torch.engine.sampler import SamplerConfig, sample_token
-from llm_consensus_tpu_torch.models.cache import KVCache, QuantKVCache
+from llm_consensus_tpu_torch.models.cache import KVCache, QuantKVCache, quantize_kv
 from llm_consensus_tpu_torch.models.configs import ModelConfig
-from llm_consensus_tpu_torch.models.transformer import decode_step, prefill
+from llm_consensus_tpu_torch.models.transformer import (
+    _chunk_hidden,
+    _unembed,
+    decode_chunk,
+    decode_step,
+    prefill,
+    prefill_chunked,
+)
 
 # Decode steps between host checks of "every row is done" (each check
 # waits for the card).
@@ -64,6 +79,7 @@ def generate(
     stop_ids: tuple[int, ...] = (),
     shared_prefix_attention: bool = True,
     kv_quant: bool = False,
+    prefill_chunk: int = 0,
 ) -> GenerateOutput:
     """Generate up to ``max_new_tokens`` for a batch of right-padded prompts.
 
@@ -75,6 +91,7 @@ def generate(
     ``shared_prefix_attention``: under ``shared_prefill``, decode reads
     the prompt's slots [0, lengths[0]) once per step for all rows.
     ``kv_quant``: the KV cache is int8 (``QuantKVCache``).
+    ``prefill_chunk`` > 0: a prompt longer than it prefills in chunks.
     """
     b, s = tokens.shape
     if cache_len is None:
@@ -83,11 +100,12 @@ def generate(
         raise ValueError(
             f"cache_len {cache_len} < prompt {s} + max_new_tokens {max_new_tokens}"
         )
-    logits, cache = _prefill_into_cache(
+    logits, cache = prefill_into_cache(
         cfg, params, tokens, lengths,
         cache_len=cache_len,
         shared_prefill=shared_prefill,
         kv_quant=kv_quant,
+        prefill_chunk=prefill_chunk,
     )
     return _decode_loop(
         cfg,
@@ -108,7 +126,7 @@ def generate(
     )
 
 
-def _prefill_into_cache(
+def prefill_into_cache(
     cfg: ModelConfig,
     params: dict,
     tokens: torch.Tensor,
@@ -117,9 +135,11 @@ def _prefill_into_cache(
     cache_len: int,
     shared_prefill: bool = False,
     kv_quant: bool = False,
+    prefill_chunk: int = 0,
 ):
     """Allocate the cache, fill it, return (first-token logits [B, V],
-    cache at B rows)."""
+    cache at B rows). Shared with the engine's chunked-decode path
+    (multi-token stops need prefill and decode as separate calls)."""
     b = tokens.shape[0]
     dtype = params["embed"].dtype
 
@@ -128,21 +148,29 @@ def _prefill_into_cache(
             return QuantKVCache.create(cfg, batch, cache_len, tokens.device)
         return KVCache.create(cfg, batch, cache_len, dtype, tokens.device)
 
+    def fill(p_tokens, p_lengths, p_cache):
+        # Chunked prefill (bounded activation memory) when the prompt
+        # exceeds the chunk; it writes the one-shot prefill's cache.
+        if 0 < prefill_chunk < p_tokens.shape[1]:
+            return prefill_chunked(cfg, params, p_tokens, p_lengths, p_cache,
+                                   chunk=prefill_chunk)
+        return prefill(cfg, params, p_tokens, p_lengths, p_cache)
+
     if shared_prefill:
         # Self-consistency fan-out: all B rows decode from the SAME
         # prompt, so prefill once at B=1 and copy the cache to B rows
         # (the rows then diverge, so each needs its own buffer).
         cache1 = make_cache(1)
-        logits1, cache1 = prefill(cfg, params, tokens[:1], lengths[:1], cache1)
+        logits1, cache1 = fill(tokens[:1], lengths[:1], cache1)
         logits = logits1.expand(b, -1)
-        cache = _broadcast_cache(cache1, b)
+        cache = broadcast_cache(cache1, b)
     else:
         cache = make_cache(b)
-        logits, cache = prefill(cfg, params, tokens, lengths, cache)
+        logits, cache = fill(tokens, lengths, cache)
     return logits, cache
 
 
-def _broadcast_cache(cache1, b: int):
+def broadcast_cache(cache1, b: int):
     """Copy a B=1 cache's buffers (and length) to B rows."""
     return type(cache1)(
         *(t.repeat(1, b, *([1] * (t.ndim - 2))) for t in cache1.leaves),
@@ -216,3 +244,217 @@ def _decode_loop(
     num = (~all_done_before).sum(dim=1).to(torch.int32)
     all_toks = torch.where(all_done_before, pad_id, all_toks)
     return GenerateOutput(tokens=all_toks, num_tokens=num, logprob_sum=lp_sum)
+
+
+@torch.inference_mode()
+def generate_from_prefix(
+    cfg: ModelConfig,
+    params: dict,
+    prefix_k: torch.Tensor,
+    prefix_v: torch.Tensor,
+    prefix_len: int,
+    tokens: torch.Tensor,
+    lengths: torch.Tensor,
+    generator: torch.Generator,
+    temperature: torch.Tensor,
+    *,
+    max_new_tokens: int,
+    sampler: SamplerConfig = SamplerConfig(),
+    eos_id: int = 2,
+    pad_id: int = 0,
+    cache_len: int | None = None,
+    stop_ids: tuple[int, ...] = (),
+    shared_suffix: bool = False,
+    kv_quant: bool = False,
+    moe_suffix_dense: bool | None = None,
+    shared_prefix_attention: bool = True,
+) -> GenerateOutput:
+    """Generate continuing from a prefilled shared prompt prefix.
+
+    A prefix shared by many calls (a few-shot header, a debate's
+    transcript) is prefilled once at B=1; its K/V (``prefix_k``/``prefix_v``
+    [L, 1, Pb, Hkv, D], a :class:`KVCache`'s buffers) is copied into every
+    later batch instead of being recomputed. The per-row suffixes
+    ([B, S] right-padded ``tokens``, true ``lengths``) run as one chunk
+    forward at position ``prefix_len``, then the decode loop runs. ``Pb``
+    may exceed ``prefix_len`` (a bucket); the pad slots are never
+    attended. ``shared_suffix``: every row has the same suffix (the
+    fan-out under a cached header): the chunk runs at B=1 and the decode
+    reads the whole prefilled region once a step through the shared-prefix
+    path. ``kv_quant``: continue into an int8 cache, the stored prefix
+    quantized on entry with the prefill's own rule. ``moe_suffix_dense``:
+    the MoE dispatch path of the suffix chunk (see
+    :func:`prefill_from_prefix`). Outputs equal :func:`generate`'s on the
+    concatenated prompts (the JAX package's contract).
+    """
+    b, s = tokens.shape
+    p = prefix_k.shape[2]
+    if cache_len is None:
+        cache_len = p + s + max_new_tokens
+    if cache_len < p + s + max_new_tokens:
+        raise ValueError(
+            f"cache_len {cache_len} < prefix bucket {p} + suffix {s} "
+            f"+ max_new_tokens {max_new_tokens}"
+        )
+    logits, cache = prefill_from_prefix(
+        cfg, params, prefix_k, prefix_v, prefix_len, tokens, lengths,
+        cache_len=cache_len, shared_suffix=shared_suffix, kv_quant=kv_quant,
+        moe_suffix_dense=moe_suffix_dense,
+    )
+    return _decode_loop(
+        cfg,
+        params,
+        logits,
+        cache,
+        generator,
+        temperature,
+        sampler=sampler,
+        eos_id=eos_id,
+        pad_id=pad_id,
+        max_new_tokens=max_new_tokens,
+        uniform_write=shared_suffix,
+        stop_ids=stop_ids,
+        shared_prefix_len=(
+            int(prefix_len) + int(lengths[0])
+            if shared_suffix and shared_prefix_attention else None
+        ),
+    )
+
+
+@torch.inference_mode()
+def prefill_from_prefix(
+    cfg: ModelConfig,
+    params: dict,
+    prefix_k: torch.Tensor,
+    prefix_v: torch.Tensor,
+    prefix_len: int,
+    tokens: torch.Tensor,
+    lengths: torch.Tensor,
+    *,
+    cache_len: int,
+    shared_suffix: bool = False,
+    kv_quant: bool = False,
+    moe_suffix_dense: bool | None = None,
+):
+    """The prefill half of :func:`generate_from_prefix` (copy the prefix
+    into a fresh cache, run the suffix chunk): (first-token logits
+    [B, V], cache at B rows). Shared with the engine's multi-token-stop
+    path.
+
+    ``moe_suffix_dense``: the suffix chunk's MoE path, dense (True) or
+    capacity (False), resolved by the caller from the token count a plain
+    one-shot prefill of the concatenated prompt takes, so the split into
+    prefix and suffix does not flip the chunk across
+    ``moe_dense_decode_tokens``; None decides from the bucket width (the
+    JAX package's ``_prefix_prefill_impl``).
+    """
+    b, s = tokens.shape
+    cb = 1 if shared_suffix else b
+    total = cb * (prefix_k.shape[2] + s)
+    if moe_suffix_dense is None:
+        cfg = cfg.moe_pin_for(total, total)
+    elif moe_suffix_dense:
+        cfg = cfg.with_moe_dense_up_to(total)
+    else:
+        cfg = cfg.with_moe_capacity_pinned()
+    pb = prefix_k.shape[2]
+    dev = tokens.device
+    plen = torch.full((cb,), int(prefix_len), dtype=torch.int32, device=dev)
+    if kv_quant:
+        cache = QuantKVCache.create(cfg, cb, cache_len, dev)
+        kq, ks = quantize_kv(prefix_k)  # [L, 1, Pb, Hkv, D] / [L, 1, Pb, Hkv]
+        vq, vs = quantize_kv(prefix_v)
+        # Sequence-major -> the int8 cache's head-major layout.
+        cache.k_q[:, :, :, :pb] = kq.transpose(2, 3)
+        cache.v_q[:, :, :, :pb] = vq.transpose(2, 3)
+        cache.k_scale[:, :, :, :pb] = ks.transpose(2, 3)
+        cache.v_scale[:, :, :, :pb] = vs.transpose(2, 3)
+    else:
+        cache = KVCache.create(cfg, cb, cache_len, prefix_k.dtype, dev)
+        cache.k[:, :, :pb] = prefix_k
+        cache.v[:, :, :pb] = prefix_v
+    cache = cache.with_length(plen)
+    hidden, cache = _chunk_hidden(cfg, params, tokens[:cb], cache)
+    last = torch.clamp(lengths[:cb].long() - 1, 0, s - 1)
+    logits = _unembed(cfg, params, hidden[torch.arange(cb, device=dev), last])
+    if shared_suffix:
+        return (logits.expand(b, -1),
+                broadcast_cache(cache, b).with_length(plen[:1] + lengths.to(torch.int32)))
+    return logits, cache.with_length(plen + lengths.to(torch.int32))
+
+
+@torch.inference_mode()
+def decode_steps(
+    cfg: ModelConfig,
+    params: dict,
+    cache,
+    tok: torch.Tensor,
+    done: torch.Tensor,
+    generator: torch.Generator,
+    temperature: torch.Tensor,
+    *,
+    steps: int,
+    sampler: SamplerConfig = SamplerConfig(),
+    eos_id: int = 2,
+    pad_id: int = 0,
+    stop_ids: tuple[int, ...] = (),
+):
+    """Run ``steps`` decode iterations from a held cache (streaming).
+
+    ``tok`` [B]: the last sampled token, not yet in the cache (this call's
+    first input); ``done`` [B]: rows already finished. The cache is
+    written in place. Returns (tokens [B, steps], pad after a row ends;
+    live [B, steps], True where the row was still generating when the
+    slot was emitted; the cache; done; the last token; logprobs
+    [B, steps], each step's sampled-token logprob, 0 where the row was
+    done) — the JAX package's tuple.
+    """
+    toks, lives, lps = [], [], []
+    for _ in range(steps):
+        logits, cache = decode_step(cfg, params, tok[:, None], cache)
+        nxt, lp = sample_token(logits, generator, temperature, sampler)
+        nxt = torch.where(done, pad_id, nxt)
+        lps.append(torch.where(done, 0.0, lp))
+        lives.append(~done)
+        toks.append(nxt)
+        done = done | _is_terminal(nxt, eos_id, stop_ids)
+        tok = nxt
+    return (torch.stack(toks, dim=1), torch.stack(lives, dim=1), cache, done, tok,
+            torch.stack(lps, dim=1))
+
+
+@torch.inference_mode()
+def score_completions(
+    cfg: ModelConfig,
+    params: dict,
+    prompt_tokens: torch.Tensor,
+    prompt_len: torch.Tensor,
+    comp_tokens: torch.Tensor,
+    comp_lens: torch.Tensor,
+    *,
+    cache_len: int,
+):
+    """Teacher-forced log-probability of completions under the model.
+
+    prompt_tokens: [1, S] right-padded shared prompt; prompt_len: [1];
+    comp_tokens: [B, K] right-padded completions; comp_lens: [B]. The
+    prompt prefills once at B=1, its cache is copied to the B rows, and
+    all K completion positions score in one chunk forward. The cache is
+    bf16 whatever the weights' type, as the JAX package's (no decode
+    kernel reads it). Returns (logprob_sum [B], per-token logprobs
+    [B, K], 0 past each completion's length).
+    """
+    b, k = comp_tokens.shape
+    cache1 = KVCache.create(cfg, 1, cache_len, torch.bfloat16, prompt_tokens.device)
+    logits1, cache1 = prefill(cfg, params, prompt_tokens, prompt_len, cache1)
+    chunk_logits, _ = decode_chunk(cfg, params, comp_tokens, broadcast_cache(cache1, b))
+    # Position i of the chunk predicts token i + 1; the prompt's last
+    # logits predict token 0.
+    all_logits = torch.cat(
+        [logits1.expand(b, -1)[:, None], chunk_logits[:, :-1].float()], dim=1
+    )
+    lps = torch.log_softmax(all_logits, dim=-1)
+    tok_lp = lps.gather(-1, comp_tokens[..., None].long())[..., 0]
+    mask = torch.arange(k, device=comp_tokens.device)[None, :] < comp_lens[:, None]
+    tok_lp = torch.where(mask, tok_lp, 0.0)
+    return tok_lp.sum(dim=1), tok_lp

@@ -5,7 +5,9 @@ The reference never tokenizes — text goes to the Gemini API verbatim
 provides :class:`ByteTokenizer` — dependency-free byte-level tokenizer
 (UTF-8 bytes offset past the special ids). Deterministic, reversible,
 works with the tiny test configs and in fully offline environments.
-The HuggingFace ``load_tokenizer`` of the JAX package is not ported yet.
+:class:`HFTokenizer` wraps a ``transformers`` tokenizer read from a local
+directory (:func:`load_tokenizer`, which falls back to bytes; importing
+this module never needs ``transformers``).
 
 The surface is ``encode``, ``decode``, ``vocab_size``, ``bos_id``,
 ``eos_id``, ``pad_id``.
@@ -14,6 +16,7 @@ The surface is ``encode``, ``decode``, ``vocab_size``, ``bos_id``,
 from __future__ import annotations
 
 import abc
+import os
 from typing import Sequence
 
 
@@ -75,3 +78,37 @@ class ByteTokenizer(Tokenizer):
         # occurrence). surrogateescape is also reversible, preserving
         # the class promise that decode round-trips arbitrary bytes.
         return data.decode("utf-8", errors="surrogateescape")
+
+
+class HFTokenizer(Tokenizer):
+    """Wrapper over a locally available ``transformers`` tokenizer."""
+
+    def __init__(self, tok) -> None:
+        self._tok = tok
+        self.vocab_size = len(tok)
+        self.bos_id = tok.bos_token_id if tok.bos_token_id is not None else 1
+        self.eos_id = tok.eos_token_id if tok.eos_token_id is not None else 2
+        pad = tok.pad_token_id
+        self.pad_id = pad if pad is not None else self.eos_id
+
+    def encode(self, text: str, add_bos: bool = True) -> list[int]:
+        ids = self._tok.encode(text, add_special_tokens=False)
+        return [self.bos_id] + ids if add_bos else ids
+
+    def decode(self, ids: Sequence[int]) -> str:
+        return self._tok.decode(list(ids), skip_special_tokens=True)
+
+
+def load_tokenizer(path: str | None = None) -> Tokenizer:
+    """The HF tokenizer in the local directory ``path``; the
+    :class:`ByteTokenizer` when ``path`` is None, not a directory, or
+    holds nothing ``transformers`` can load (or ``transformers`` is not
+    installed). Never reads the network (``local_files_only=True``)."""
+    if path and os.path.isdir(path):
+        try:
+            from transformers import AutoTokenizer
+
+            return HFTokenizer(AutoTokenizer.from_pretrained(path, local_files_only=True))
+        except Exception:  # noqa: BLE001 - any load failure -> byte fallback
+            pass
+    return ByteTokenizer()

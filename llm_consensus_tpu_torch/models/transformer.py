@@ -1,8 +1,9 @@
-"""Pre-norm GQA transformer (Llama family), dense models, in PyTorch.
+"""Pre-norm GQA transformer (Llama/Mistral/Qwen2/Mixtral family) in PyTorch.
 
-Counterpart of ``llm_consensus_tpu.models.transformer`` for dense models
-with bf16, int8 or int4 weights and a bf16 or int8 KV cache: the same
-parameter tree (layers stacked on a leading axis, quantized leaves as
+Counterpart of ``llm_consensus_tpu.models.transformer`` with bf16, int8
+or int4 weights and a bf16 or int8 KV cache: the same parameter tree
+(layers stacked on a leading axis, MoE expert stacks on a second one,
+quantized leaves as
 :class:`~llm_consensus_tpu_torch.ops.quant.QuantizedTensor` or
 ``Quantized4Tensor``), the same
 ``[B, S, H, D]`` layouts, the same float32 norms, softmax and logits.
@@ -15,14 +16,25 @@ Differences by design:
   hand-written kernels of :mod:`llm_consensus_tpu_torch.ops.kernels`;
   int8 and int4 weights go through the W8A16 and W4A16 kernels by shape
   (:func:`~llm_consensus_tpu_torch.ops.quant.matmul`).
+- A sliding-window config (Mistral) takes the plain attention ops
+  wherever the JAX package routes it around its kernels: prefill,
+  decode and the shared-prefix fan-out; the paged steps pass the window
+  to K8.
+- MoE (Mixtral) runs the JAX package's two paths: the dense all-experts
+  path (``moe_dense_at``) and the capacity-bounded GShard dispatch, the
+  latter in an index form (a scatter and a gather instead of dense
+  ``[T, E, C]`` masks: the same sums). Expert weights are dequantized a
+  layer at a time, as the JAX package's ``_w`` does.
 
-MoE, sliding windows, ring attention, the speculative verify step and
-the chunk mode are not ported yet; the entry points raise on configs that
-need them.
+Ring attention and the speculative verify step are not ported yet:
+:func:`_check_supported` raises on ``use_ring``, and the paged steps
+refuse MoE configs (:func:`check_paged_supported`).
 
 Entry points: :func:`forward` (logits for every position),
 :func:`prefill` (fill the cache from right-padded prompts, last-token
-logits) and :func:`decode_step` (one token against the cache); for the
+logits), :func:`decode_step` (one token against the cache),
+:func:`decode_chunk` (K tokens a row against the cache) and
+:func:`prefill_chunked` (prefill in fixed-size chunks); for the
 continuous batcher's page pool (:mod:`.paged_cache`),
 :func:`decode_step_paged`, :func:`prefill_chunk_paged`,
 :func:`fused_step_paged` and :func:`unembed_one`. The paged steps write
@@ -48,6 +60,7 @@ import math
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from llm_consensus_tpu_torch.models.cache import KVCache, QuantKVCache, quantize_kv
 from llm_consensus_tpu_torch.models.configs import ModelConfig
@@ -55,7 +68,9 @@ from llm_consensus_tpu_torch.models.paged_cache import NULL_PAGE, PagedKVCache
 from llm_consensus_tpu_torch.ops import kernels
 from llm_consensus_tpu_torch.ops.activations import swiglu
 from llm_consensus_tpu_torch.ops.attention import (
+    _dequantize_kv,
     causal_attention,
+    chunk_decode_attention,
     decode_attention,
     decode_attention_quant,
     ragged_paged_attention_reference,
@@ -66,18 +81,31 @@ from llm_consensus_tpu_torch.ops.quant import (
     Quantized4Tensor,
     QuantizedTensor,
     leaves,
-    quantize_params,
+    quant_axis,
+    quantize_tensor,
+    quantize_tensor4,
 )
+from llm_consensus_tpu_torch.ops.kernels.quant_matmul import unpack4
 from llm_consensus_tpu_torch.ops.quant import matmul as _qmm
 from llm_consensus_tpu_torch.ops.rope import apply_rope, rope_cos_sin
 from llm_consensus_tpu_torch.utils.device import resolve_device, to_device
 
 
 def _check_supported(cfg: ModelConfig) -> None:
-    if cfg.is_moe or cfg.sliding_window or cfg.use_ring:
+    if cfg.use_ring:
         raise NotImplementedError(
-            f"{cfg.name}: MoE, sliding-window and ring attention are not "
-            "ported to PyTorch yet"
+            f"{cfg.name}: ring attention is not ported to PyTorch yet"
+        )
+
+
+def check_paged_supported(cfg: ModelConfig) -> None:
+    """The paged (serving) steps' refusals: ring attention, and MoE,
+    whose per-side MLP of the fused step is not ported yet."""
+    _check_supported(cfg)
+    if cfg.is_moe:
+        raise NotImplementedError(
+            f"{cfg.name}: MoE on the paged serving steps is not ported to "
+            "PyTorch yet"
         )
 
 
@@ -88,25 +116,26 @@ def _rms(cfg: ModelConfig, x, w):
 
 
 def _attn_causal(cfg: ModelConfig, q, k, v, positions):
-    # The kernel implements index-causal masking; explicit positions use
-    # the plain path.
-    if cfg.use_pallas and positions is None:
+    # The kernel implements index-causal masking; explicit positions and
+    # sliding windows use the plain path.
+    if cfg.use_pallas and positions is None and cfg.sliding_window == 0:
         return kernels.flash_causal_attention(q, k, v)
-    return causal_attention(q, k, v, positions)
+    return causal_attention(q, k, v, positions, window=cfg.sliding_window)
 
 
 def _attn_decode(cfg: ModelConfig, q, k_cache, v_cache, valid_len, shared_prefix_len=None):
     """``shared_prefix_len`` (int or None): every row's cache slots
     [0, shared_prefix_len) hold the same K/V (the shared-prefill fan-out),
     so the kernel reads that region once for the whole batch. Engages on
-    the kernel path only; the plain path reads every row (same outputs)."""
-    if cfg.use_pallas:
+    the kernel path of a config without a sliding window only; the plain
+    path reads every row (same outputs)."""
+    if cfg.use_pallas and cfg.sliding_window == 0:
         if shared_prefix_len is not None:
             return kernels.flash_decode_attention_shared_prefix(
                 q, k_cache, v_cache, valid_len, shared_prefix_len
             )
         return kernels.flash_decode_attention(q, k_cache, v_cache, valid_len)
-    return decode_attention(q, k_cache, v_cache, valid_len)
+    return decode_attention(q, k_cache, v_cache, valid_len, window=cfg.sliding_window)
 
 
 _STACKED_DECODE = False
@@ -126,22 +155,24 @@ def _attn_decode_quant(cfg: ModelConfig, q, k_q, k_s, v_q, v_s, valid_len,
                        shared_prefix_len=None):
     """Decode attention over one layer's int8 cache views [B, Hkv, S, D]
     (scales [B, Hkv, S]): K4, or K7-q8 for a shared prefix, on the kernel
-    path; the plain path dequantizes and reads every row (same
-    outputs)."""
-    if cfg.use_pallas:
+    path; the plain path (and any config with a sliding window)
+    dequantizes and reads every row (same outputs)."""
+    if cfg.use_pallas and cfg.sliding_window == 0:
         if shared_prefix_len is not None:
             return kernels.flash_decode_attention_shared_prefix_q8(
                 q, k_q, k_s, v_q, v_s, valid_len, shared_prefix_len
             )
         return kernels.flash_decode_attention_q8(q, k_q, k_s, v_q, v_s, valid_len)
-    return decode_attention_quant(q, k_q, k_s, v_q, v_s, valid_len)
+    return decode_attention_quant(
+        q, k_q, k_s, v_q, v_s, valid_len, window=cfg.sliding_window
+    )
 
 
 def _attn_decode_quant_stacked(cfg: ModelConfig, q, k_q, k_s, v_q, v_s, valid_len,
                                layer: int, shared_prefix_len=None):
     """As :func:`_attn_decode_quant`, given the whole stacked cache
     [L, B, Hkv, S, D] and the layer index."""
-    if cfg.use_pallas:
+    if cfg.use_pallas and cfg.sliding_window == 0:
         if shared_prefix_len is not None:
             return kernels.flash_decode_attention_shared_prefix_q8_stacked(
                 q, k_q, k_s, v_q, v_s, valid_len, shared_prefix_len, layer
@@ -150,13 +181,83 @@ def _attn_decode_quant_stacked(cfg: ModelConfig, q, k_q, k_s, v_q, v_s, valid_le
             q, k_q, k_s, v_q, v_s, valid_len, layer
         )
     return decode_attention_quant(
-        q, k_q[layer], k_s[layer], v_q[layer], v_s[layer], valid_len
+        q, k_q[layer], k_s[layer], v_q[layer], v_s[layer], valid_len,
+        window=cfg.sliding_window,
     )
 
 
 # ---------------------------------------------------------------------------
 # Init and parameter conversion
 # ---------------------------------------------------------------------------
+
+
+def _param_layout(cfg: ModelConfig) -> list[tuple[tuple[str, ...], tuple, tuple]]:
+    """(path, shape, init) of every leaf of the ``init_params`` tree, in
+    the JAX package's draw order; ``init`` is ("normal", scale),
+    ("ones",) or ("zeros",)."""
+    L, D, H, Hkv, F_, V = (
+        cfg.n_layers,
+        cfg.d_model,
+        cfg.n_heads,
+        cfg.n_kv_heads,
+        cfg.d_ff,
+        cfg.vocab_size,
+    )
+    Dh = cfg.head_dim
+    normal, resid = ("normal", 0.02), ("normal", 0.02 / math.sqrt(2 * L))
+    out = [
+        (("blocks", "attn_norm"), (L, D), ("ones",)),
+        (("blocks", "mlp_norm"), (L, D), ("ones",)),
+        (("blocks", "wq"), (L, D, H * Dh), normal),
+        (("blocks", "wk"), (L, D, Hkv * Dh), normal),
+        (("blocks", "wv"), (L, D, Hkv * Dh), normal),
+        (("blocks", "wo"), (L, H * Dh, D), resid),
+    ]
+    if cfg.qkv_bias:
+        out += [
+            (("blocks", "bq"), (L, H * Dh), ("zeros",)),
+            (("blocks", "bk"), (L, Hkv * Dh), ("zeros",)),
+            (("blocks", "bv"), (L, Hkv * Dh), ("zeros",)),
+        ]
+    if cfg.is_moe:
+        E = cfg.n_experts
+        out += [
+            (("blocks", "router"), (L, D, E), normal),
+            (("blocks", "w_gate"), (L, E, D, F_), normal),
+            (("blocks", "w_up"), (L, E, D, F_), normal),
+            (("blocks", "w_down"), (L, E, F_, D), resid),
+        ]
+    else:
+        out += [
+            (("blocks", "w_gate"), (L, D, F_), normal),
+            (("blocks", "w_up"), (L, D, F_), normal),
+            (("blocks", "w_down"), (L, F_, D), resid),
+        ]
+    out += [(("embed",), (V, D), normal), (("norm_f",), (D,), ("ones",))]
+    if not cfg.tie_embeddings:
+        out.append((("lm_head",), (D, V), normal))
+    return out
+
+
+def _put(tree: dict, path: tuple[str, ...], leaf) -> None:
+    for key in path[:-1]:
+        tree = tree.setdefault(key, {})
+    tree[path[-1]] = leaf
+
+
+def _generator(generator, dev: torch.device):
+    if isinstance(generator, int):
+        return torch.Generator(device=dev).manual_seed(generator)
+    return generator
+
+
+def _draw_leaf(shape, init, generator, dev: torch.device, dtype) -> torch.Tensor:
+    """One leaf by its ``init`` rule (see :func:`_param_layout`): a
+    float32 normal draw scaled and cast to ``dtype``, or ones/zeros."""
+    if init[0] == "normal":
+        w = torch.randn(shape, generator=generator, device=dev, dtype=torch.float32)
+        return (w * init[1]).to(dtype)
+    return torch.full(shape, 1.0 if init[0] == "ones" else 0.0, dtype=dtype, device=dev)
 
 
 def init_params(
@@ -167,7 +268,8 @@ def init_params(
 ) -> dict:
     """Random-init parameters with the JAX package's scheme: normal(0,
     0.02), residual projections scaled by 1/sqrt(2*n_layers), norms ones,
-    biases zeros, drawn in the same order. ``generator``: a
+    biases zeros, drawn in the same order (MoE: a router and expert
+    stacks [L, E, ...] in place of the dense MLP). ``generator``: a
     ``torch.Generator`` on ``device``, or an int seed for one. The
     numbers differ from the JAX package's for the same seed (another
     generator); carry JAX weights over with :func:`params_from_jax`.
@@ -175,54 +277,15 @@ def init_params(
     nothing (the capacity planner's use; ``generator`` is unused)."""
     dev = resolve_device(device)
     meta = dev.type == "meta"
-    if isinstance(generator, int) and not meta:
-        generator = torch.Generator(device=dev).manual_seed(generator)
-
-    def normal(shape, scale=0.02):
+    if not meta:
+        generator = _generator(generator, dev)
+    params: dict = {}
+    for path, shape, init in _param_layout(cfg):
         if meta:
-            return torch.empty(shape, dtype=dtype, device=dev)
-        w = torch.randn(shape, generator=generator, device=dev, dtype=torch.float32)
-        return (w * scale).to(dtype)
-
-    def full(shape, value):
-        return torch.full(shape, value, dtype=dtype, device=dev)
-
-    L, D, H, Hkv, F, V = (
-        cfg.n_layers,
-        cfg.d_model,
-        cfg.n_heads,
-        cfg.n_kv_heads,
-        cfg.d_ff,
-        cfg.vocab_size,
-    )
-    Dh = cfg.head_dim
-    resid_scale = 0.02 / math.sqrt(2 * L)
-
-    blocks: dict = {
-        "attn_norm": full((L, D), 1.0),
-        "mlp_norm": full((L, D), 1.0),
-        "wq": normal((L, D, H * Dh)),
-        "wk": normal((L, D, Hkv * Dh)),
-        "wv": normal((L, D, Hkv * Dh)),
-        "wo": normal((L, H * Dh, D), resid_scale),
-    }
-    if cfg.qkv_bias:
-        blocks["bq"] = full((L, H * Dh), 0.0)
-        blocks["bk"] = full((L, Hkv * Dh), 0.0)
-        blocks["bv"] = full((L, Hkv * Dh), 0.0)
-    if cfg.is_moe:
-        raise NotImplementedError("MoE is not ported to PyTorch yet")
-    blocks["w_gate"] = normal((L, D, F))
-    blocks["w_up"] = normal((L, D, F))
-    blocks["w_down"] = normal((L, F, D), resid_scale)
-
-    params = {
-        "embed": normal((V, D)),
-        "blocks": blocks,
-        "norm_f": full((D,), 1.0),
-    }
-    if not cfg.tie_embeddings:
-        params["lm_head"] = normal((D, V))
+            leaf = torch.empty(shape, dtype=dtype, device=dev)
+        else:
+            leaf = _draw_leaf(shape, init, generator, dev, dtype)
+        _put(params, path, leaf)
     return params
 
 
@@ -234,13 +297,47 @@ def init_params_quantized(
     dtype=torch.bfloat16,
     device: str | torch.device | None = None,
 ) -> dict:
-    """Init on the CPU, quantize there (``bits`` 8 or 4), then move to
-    ``device``: the card only ever holds the quantized leaves, never the
-    full-width ones. ``generator`` is a CPU generator or an int seed for
-    one."""
+    """Random init straight into quantized leaves (``bits`` 8 or 4) on
+    ``device``: every leaf that :func:`~llm_consensus_tpu_torch.ops.quant.
+    quantize_params` quantizes is drawn one matrix at a time (one layer's
+    ``[K, N]``, or one expert's of an MoE stack), cast to ``dtype`` and
+    quantized there, so the device holds the quantized tree plus one
+    matrix in flight, never the full-width tree (mixtral-8x7b's
+    ``w_gate`` alone is 60 GB as a float32 draw). The other leaves are
+    drawn as :func:`init_params` draws them. ``generator``: a generator
+    on ``device`` or an int seed for one. The values differ from
+    quantizing an :func:`init_params` tree of the same seed (another
+    draw order); parity tests carry JAX weights over with
+    :func:`params_from_jax` instead."""
+    if bits not in (8, 4):
+        raise ValueError(f"bits must be 8 or 4, got {bits}")
     dev = resolve_device(device)
-    params = quantize_params(init_params(cfg, generator, dtype, "cpu"), bits=bits)
-    return to_device(params, dev)
+    generator = _generator(generator, dev)
+    qfn = quantize_tensor if bits == 8 else quantize_tensor4
+    params: dict = {}
+    for path, shape, init in _param_layout(cfg):
+        if path == ("lm_head",):
+            axis = 0
+        elif path[0] == "blocks":
+            axis = quant_axis(path[1], len(shape))
+        else:
+            axis = None
+        if axis is None:
+            _put(params, path, _draw_leaf(shape, init, generator, dev, dtype))
+            continue
+        # Matrices [..., K, N]; the contraction axis is always -2.
+        lead, (k, n) = shape[:-2], shape[-2:]
+        q_rows = k if bits == 8 else k // 2
+        q = torch.empty((*lead, q_rows, n), dtype=torch.int8, device=dev)
+        scale = torch.empty((*lead, 1, n), dtype=torch.float32, device=dev)
+        for idx in np.ndindex(*lead):
+            leaf = qfn(_draw_leaf((k, n), init, generator, dev, dtype), 0)
+            q[idx] = leaf.q
+            scale[idx] = leaf.scale
+            del leaf
+        cls = QuantizedTensor if bits == 8 else Quantized4Tensor
+        _put(params, path, cls(q=q, scale=scale))
+    return params
 
 
 def _leaf_to_tensor(a, device, dtype) -> torch.Tensor:
@@ -316,8 +413,169 @@ def _project_qkv(cfg: ModelConfig, p: dict, h: torch.Tensor):
     return q, k, v
 
 
-def _mlp(cfg: ModelConfig, p: dict, h: torch.Tensor) -> torch.Tensor:
-    return swiglu(h, p["w_gate"], p["w_up"], p["w_down"])
+def moe_router_aux(
+    cfg: ModelConfig, router_logits: torch.Tensor, top_idx: torch.Tensor
+) -> dict:
+    """Router auxiliary losses for MoE training (the JAX package's).
+
+    router_logits: [..., E] pre-softmax; top_idx: [..., k] chosen experts.
+    Returns {"load_balance", "z_loss"} float32 scalars: load_balance is
+    ``E * sum_e f_e * P_e`` (f_e the fraction of (token, choice)
+    assignments routed to expert e, P_e its mean router probability; 1.0
+    under uniform routing), z_loss is ``mean(logsumexp(logits)^2)``.
+    """
+    e = cfg.n_experts
+    logits2 = router_logits.reshape(-1, e).float()
+    p_e = torch.softmax(logits2, dim=-1).mean(dim=0)
+    f_e = F.one_hot(top_idx.reshape(-1).long(), e).float().mean(dim=0)
+    return {
+        "load_balance": e * torch.sum(f_e * p_e),
+        "z_loss": torch.mean(torch.logsumexp(logits2, dim=-1) ** 2),
+    }
+
+
+def _zero_aux(device) -> dict:
+    zero = torch.zeros((), dtype=torch.float32, device=device)
+    return {"load_balance": zero, "z_loss": zero}
+
+
+def _top_k(logits: torch.Tensor, k: int):
+    """``jax.lax.top_k``'s choice and order: the k largest, descending,
+    the lower index first among equal values (``torch.topk`` promises no
+    order on ties; a stable sort keeps the index order)."""
+    vals, idx = torch.sort(logits, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def _route(cfg: ModelConfig, p: dict, x: torch.Tensor):
+    """Router logits [T, E] float32, top-k experts [T, k] and their
+    softmax weights [T, k] for tokens x [T, D]."""
+    router_logits = (x @ p["router"]).float()
+    top_vals, top_idx = _top_k(router_logits, cfg.n_experts_per_token)
+    return router_logits, top_idx, torch.softmax(top_vals, dim=-1)
+
+
+def _expert_weight(leaf, dtype):
+    """An expert stack in the activations' ``dtype``: the JAX package's
+    ``_w``, which dequantizes a quantized leaf into bf16 (q times the
+    scale, both cast to bf16). For float32 activations that bf16 weight is
+    promoted, and XLA's compiled program drops the product's bf16 rounding
+    (q times the bf16 scale, in float32); that is what the float32 model
+    computes here, so it matches the JAX package as it runs."""
+    if not isinstance(leaf, QUANT_LEAVES):
+        return leaf.to(dtype)
+    q = leaf.q if isinstance(leaf, QuantizedTensor) else unpack4(leaf.q, torch.int8)
+    if dtype == torch.bfloat16:
+        # One pass: int8 times the bf16 scale, rounded once to bf16 (the
+        # bits of bf16(q) * bf16(scale): q is exact in bf16).
+        return q * leaf.scale.to(torch.bfloat16)
+    return (q.float() * leaf.scale.to(torch.bfloat16).float()).to(dtype)
+
+
+def _experts(p: dict, dtype):
+    """A layer's expert stacks [E, D, F] / [E, F, D] (see
+    :func:`_expert_weight`)."""
+    return tuple(_expert_weight(p[name], dtype) for name in ("w_gate", "w_up", "w_down"))
+
+
+def _mlp(cfg: ModelConfig, p: dict, h: torch.Tensor, collect_aux: bool = False):
+    """The block's MLP: SwiGLU, or for an MoE config the dense
+    all-experts path (at most ``moe_dense_decode_tokens`` tokens, or no
+    capacity factor: every expert on every token, combined with the top-k
+    router weights) or :func:`_moe_dispatch`. ``collect_aux``: also
+    return the router's :func:`moe_router_aux` (zeros for a dense
+    model)."""
+    if not cfg.is_moe:
+        y = swiglu(h, p["w_gate"], p["w_up"], p["w_down"])
+        return (y, _zero_aux(h.device)) if collect_aux else y
+    d = h.shape[-1]
+    if not cfg.moe_dense_at(h.numel() // d):
+        return _moe_dispatch(cfg, p, h, collect_aux=collect_aux)
+    x = h.reshape(-1, d)
+    router_logits, top_idx, top_w = _route(cfg, p, x)
+    # Combine weights scattered back over the expert axis: [T, E].
+    combine = (F.one_hot(top_idx, cfg.n_experts).float() * top_w[..., None]).sum(dim=-2)
+    w_gate, w_up, w_down = _experts(p, h.dtype)
+    gate = F.silu(torch.matmul(x, w_gate))  # [E, T, F]
+    up = torch.matmul(x, w_up)
+    expert_out = torch.matmul(gate * up, w_down)  # [E, T, D]
+    y = torch.einsum("etd,te->td", expert_out, combine.to(expert_out.dtype))
+    y = y.reshape(h.shape)
+    if collect_aux:
+        return y, moe_router_aux(cfg, router_logits, top_idx)
+    return y
+
+
+def _moe_dispatch(cfg: ModelConfig, p: dict, h: torch.Tensor, collect_aux: bool = False):
+    """GShard/Switch capacity-bounded expert dispatch (the JAX package's
+    ``_moe_dispatch``): each expert computes only the tokens routed to
+    it, packed into a fixed-capacity [E, C, D] buffer, C = ceil(T * k /
+    E * capacity_factor). A (choice rank, token) pair's queue position in
+    its expert is rank-major and first-come (first choices take priority
+    when capacity binds); pairs past an expert's capacity are dropped
+    (that expert contributes nothing to the token).
+
+    The JAX package builds dense [T, E, C] float32 masks and contracts
+    them; here the same sums run as an index scatter into the buffer (each
+    slot receives one token row, exactly) and a gather of each token's k
+    outputs, weighted and summed in float32 in rank order (k terms, the
+    same as the masks' contraction up to the order of a float32 sum).
+    """
+    shape = h.shape
+    d = shape[-1]
+    x = h.reshape(-1, d)
+    t = x.shape[0]
+    e, k = cfg.n_experts, cfg.n_experts_per_token
+    cap = -(-t * k * cfg.moe_capacity_factor // e)
+    cap = int(min(max(cap, 1), t * k))
+    router_logits, top_idx, top_w = _route(cfg, p, x)
+
+    counts = torch.zeros((e,), dtype=torch.int64, device=x.device)
+    slots, keep = [], []
+    for r in range(k):
+        oh = F.one_hot(top_idx[:, r], e)  # [T, E]
+        pos = (torch.cumsum(oh, dim=0) - oh + counts).gather(1, top_idx[:, r:r + 1])[:, 0]
+        keep.append(pos < cap)
+        slots.append(top_idx[:, r] * cap + torch.clamp(pos, max=cap - 1))
+        counts = counts + oh.sum(dim=0)
+    slots = torch.stack(slots, dim=1)  # [T, k] flat (expert, position)
+    keep = torch.stack(keep, dim=1)  # [T, k]
+
+    # Dropped pairs write into one spare row past the buffer's end.
+    dest = torch.where(keep, slots, e * cap)
+    xin = torch.zeros((e * cap + 1, d), dtype=h.dtype, device=x.device)
+    xin.index_put_((dest.reshape(-1),), x[:, None].expand(t, k, d).reshape(-1, d))
+    xin = xin[: e * cap].reshape(e, cap, d)
+    w_gate, w_up, w_down = _experts(p, h.dtype)
+    gate = F.silu(torch.bmm(xin, w_gate))
+    up = torch.bmm(xin, w_up)
+    out_e = torch.bmm(gate * up, w_down).reshape(e * cap, d).float()
+    weight = torch.where(keep, top_w, 0.0)  # [T, k]
+    y = out_e[slots[:, 0]] * weight[:, :1]
+    for r in range(1, k):
+        y = y + out_e[slots[:, r]] * weight[:, r:r + 1]
+    y = y.to(h.dtype).reshape(shape)
+    if collect_aux:
+        return y, moe_router_aux(cfg, router_logits, top_idx)
+    return y
+
+
+def _write_chunk(buf: torch.Tensor, vals: torch.Tensor, valid_len: torch.Tensor,
+                 head_major: bool) -> None:
+    """Write K tokens a row, vals [B, K, Hkv, ...], at cache slots
+    [valid_len, valid_len + K) of buf ([B, S, Hkv, ...] token-major or
+    [B, Hkv, S, ...] head-major). Slots past the cache are dropped, as
+    the JAX package's scatter drops them (a chunk padded past the
+    cache's end)."""
+    b, kq = vals.shape[:2]
+    s = buf.shape[2] if head_major else buf.shape[1]
+    pos = valid_len.long()[:, None] + torch.arange(kq, device=vals.device)[None, :]
+    ok = pos < s
+    rows = torch.arange(b, device=vals.device)[:, None].expand(b, kq)[ok]
+    if head_major:
+        buf[rows, :, pos[ok]] = vals[ok].to(buf.dtype)
+    else:
+        buf[rows, pos[ok]] = vals[ok].to(buf.dtype)
 
 
 def _block(
@@ -333,7 +591,8 @@ def _block(
     uniform_write: bool = False,
     shared_prefix_len: int | None = None,
     stacked: tuple | None = None,
-) -> torch.Tensor:
+    collect_aux: bool = False,
+):
     """One transformer block; returns the new residual stream.
 
     ``kv_layer``: this layer's cache views, written in place in modes
@@ -346,6 +605,12 @@ def _block(
     ``shared_prefix_len`` (decode mode): see :func:`_attn_decode`.
     ``stacked`` (int8 decode under :func:`set_stacked_decode`): (the whole
     cache's four buffers, the layer index), for the ``_stacked`` wrappers.
+    Mode ``chunk`` (K tokens a row, :func:`decode_chunk`): writes them at
+    slots [valid_len, valid_len + K) and attends ragged-causally over the
+    cache through the plain ``chunk_decode_attention`` (the int8 cache
+    written quantized, read through a dequantized copy), as the JAX
+    package does. ``collect_aux`` (mode ``full``): also return the MLP's
+    router aux losses.
     """
     h = _rms(cfg, x, p["attn_norm"])
     q, k, v = _project_qkv(cfg, p, h)
@@ -369,6 +634,25 @@ def _block(
             vq_l[:, :, :s] = vq.transpose(1, 2)
             ks_l[:, :, :s] = ks.transpose(1, 2)
             vs_l[:, :, :s] = vs.transpose(1, 2)
+    elif mode == "chunk":
+        window = cfg.sliding_window
+        if len(kv_layer) == 2:
+            k_l, v_l = kv_layer
+            _write_chunk(k_l, k, valid_len, head_major=False)
+            _write_chunk(v_l, v, valid_len, head_major=False)
+            attn = chunk_decode_attention(q, k_l, v_l, valid_len, window=window)
+        else:
+            kq_l, vq_l, ks_l, vs_l = kv_layer
+            kqn, ksn = quantize_kv(k)  # [B, K, Hkv, D] / [B, K, Hkv]
+            vqn, vsn = quantize_kv(v)
+            _write_chunk(kq_l, kqn, valid_len, head_major=True)
+            _write_chunk(vq_l, vqn, valid_len, head_major=True)
+            _write_chunk(ks_l, ksn, valid_len, head_major=True)
+            _write_chunk(vs_l, vsn, valid_len, head_major=True)
+            attn = chunk_decode_attention(
+                q, _dequantize_kv(kq_l, ks_l, q.dtype),
+                _dequantize_kv(vq_l, vs_l, q.dtype), valid_len, window=window,
+            )
     elif mode == "decode" and len(kv_layer) == 4:
         kq_l, vq_l, ks_l, vs_l = kv_layer
         kq1, ks1 = quantize_kv(k[:, 0])  # [B, Hkv, D] / [B, Hkv]
@@ -411,6 +695,9 @@ def _block(
 
     x = x + _qmm(attn.reshape(*x.shape[:-1], -1), p["wo"])
     h2 = _rms(cfg, x, p["mlp_norm"])
+    if collect_aux:
+        y, aux = _mlp(cfg, p, h2, collect_aux=True)
+        return x + y, aux
     return x + _mlp(cfg, p, h2)
 
 
@@ -426,10 +713,14 @@ def _run_layers(
     positions: torch.Tensor | None,
     uniform_write: bool = False,
     shared_prefix_len: int | None = None,
-) -> torch.Tensor:
+    collect_aux: bool = False,
+):
+    """The layer loop; ``collect_aux`` (mode ``full``): returns (x, the
+    MLPs' router aux losses averaged over layers)."""
     blocks = params["blocks"]
     bufs = () if cache is None else cache.leaves
     stacked_decode = _STACKED_DECODE and mode == "decode" and len(bufs) == 4
+    auxes = []
     for layer in range(cfg.n_layers):
         p = _layer_params(blocks, layer)
         kv_layer = tuple(t[layer] for t in bufs) or None
@@ -437,7 +728,13 @@ def _run_layers(
             cfg, p, x, cos, sin, kv_layer, mode, valid_len, positions,
             uniform_write=uniform_write, shared_prefix_len=shared_prefix_len,
             stacked=(bufs, layer) if stacked_decode else None,
+            collect_aux=collect_aux,
         )
+        if collect_aux:
+            x, aux = x
+            auxes.append(aux)
+    if collect_aux:
+        return x, {k: torch.stack([a[k] for a in auxes]).mean() for k in auxes[0]}
     return x
 
 
@@ -465,8 +762,11 @@ def forward(
     params: dict,
     tokens: torch.Tensor,
     positions: torch.Tensor | None = None,
-) -> torch.Tensor:
-    """Full causal forward: tokens [B, S] -> logits [B, S, V] (float32)."""
+    return_moe_aux: bool = False,
+):
+    """Full causal forward: tokens [B, S] -> logits [B, S, V] (float32).
+    ``return_moe_aux``: also return the layer-averaged MoE router aux
+    losses ({"load_balance", "z_loss"}, zeros for a dense model)."""
     _check_supported(cfg)
     x = params["embed"][tokens]
     positions_arr = (
@@ -477,8 +777,12 @@ def forward(
     cos, sin = rope_cos_sin(
         positions_arr, cfg.head_dim, cfg.rope_theta, cfg.rope_scaling
     )
-    x = _run_layers(cfg, params, x, cos, sin, None, "full", None, positions)
-    return _unembed(cfg, params, x)
+    out = _run_layers(cfg, params, x, cos, sin, None, "full", None, positions,
+                      collect_aux=return_moe_aux)
+    if return_moe_aux:
+        x, aux = out
+        return _unembed(cfg, params, x), aux
+    return _unembed(cfg, params, out)
 
 
 @torch.inference_mode()
@@ -544,6 +848,80 @@ def decode_step(
     )
     logits = _unembed(cfg, params, x[:, 0])
     return logits, cache.advanced(1)
+
+
+@torch.inference_mode()
+def decode_chunk(
+    cfg: ModelConfig,
+    params: dict,
+    tokens: torch.Tensor,
+    cache: KVCache | QuantKVCache,
+) -> tuple[torch.Tensor, KVCache | QuantKVCache]:
+    """Score K tokens a row against the cache in one forward.
+
+    tokens: [B, K]. Token (b, i) sits at position ``cache.length[b] + i``
+    and attends everything before it plus the chunk before it (ragged
+    causal; a sliding window masks as :func:`decode_step` does). Returns
+    (logits [B, K, V] float32, the cache with the K tokens' K/V written in
+    place). ``cache.length`` is not advanced: the caller sets it (the
+    tokens past what it keeps stay as masked-out slots, like prefill
+    padding).
+    """
+    x, cache = _chunk_hidden(cfg, params, tokens, cache)
+    return _unembed(cfg, params, x), cache
+
+
+def _chunk_hidden(cfg: ModelConfig, params: dict, tokens: torch.Tensor, cache):
+    """:func:`decode_chunk` without the unembed: ([B, K, D] hidden, cache),
+    for callers that keep only a few positions' logits."""
+    _check_supported(cfg)
+    kq = tokens.shape[1]
+    x = params["embed"][tokens]  # [B, K, D]
+    positions = cache.length[:, None] + torch.arange(
+        kq, dtype=cache.length.dtype, device=tokens.device)[None, :]
+    cos, sin = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta, cfg.rope_scaling)
+    x = _run_layers(cfg, params, x, cos, sin, cache, "chunk", cache.length, None)
+    return x, cache
+
+
+@torch.inference_mode()
+def prefill_chunked(
+    cfg: ModelConfig,
+    params: dict,
+    tokens: torch.Tensor,
+    lengths: torch.Tensor,
+    cache: KVCache | QuantKVCache,
+    chunk: int = 512,
+) -> tuple[torch.Tensor, KVCache | QuantKVCache]:
+    """Prefill in fixed-size chunks: bounded activation memory.
+
+    The prompt [B, S] runs as ``ceil(S / chunk)`` :func:`decode_chunk`
+    passes (each chunk attends the cache so far plus itself), writing the
+    same cache as :func:`prefill`; the contract is :func:`prefill`'s
+    (last-valid-token logits [B, V] float32, the cache with length
+    ``lengths``). An MoE config's dispatch path is pinned to the one a
+    one-shot prefill of the whole prompt takes (``moe_pin_for``), as in
+    the JAX package.
+    """
+    b, s = tokens.shape
+    cfg = cfg.moe_pin_for(b * s, b * chunk)
+    if s % chunk:
+        pad = chunk - s % chunk
+        tokens = F.pad(tokens, (0, pad))
+        s += pad
+    cache = cache.with_length(torch.zeros((b,), dtype=torch.int32, device=tokens.device))
+    last = torch.clamp(lengths.long() - 1, 0, s - 1)
+    rows = torch.arange(b, device=tokens.device)
+    x_last = torch.zeros((b, cfg.d_model), dtype=torch.float32, device=tokens.device)
+    for c0 in range(0, s, chunk):
+        hidden, cache = _chunk_hidden(cfg, params, tokens[:, c0:c0 + chunk], cache)
+        cache = cache.with_length(cache.length + chunk)
+        # Keep each row's last valid hidden state; one unembed at the end.
+        in_chunk = (last >= c0) & (last < c0 + chunk)
+        got = hidden[rows, torch.clamp(last - c0, 0, chunk - 1)]
+        x_last = torch.where(in_chunk[:, None], got.float(), x_last)
+    logits = _unembed(cfg, params, x_last.to(hidden.dtype))
+    return logits, cache.with_length(lengths.to(torch.int32))
 
 
 # ---------------------------------------------------------------------------
@@ -722,7 +1100,7 @@ def decode_step_paged(
     ``group_id`` and ``shared_start`` are this rank's rows, ``group_rep``
     global row indices.
     """
-    _check_supported(cfg)
+    check_paged_supported(cfg)
     b = tokens.shape[0]
     pos = cache.length.long()  # [B] write positions
     x = params["embed"][tokens]  # [B, 1, D]
@@ -778,7 +1156,7 @@ def prefill_chunk_paged(
     owns the table's pages writes them, and the hidden states are the
     same on every rank.
     """
-    _check_supported(cfg)
+    check_paged_supported(cfg)
     c = tokens.shape[1]
     dev = tokens.device
     pos = int(start) + torch.arange(c, device=dev)
@@ -828,7 +1206,7 @@ def fused_step_paged(
     ``mesh``: this rank's decode rows and shard, the chunk replicated, as
     in :func:`decode_step_paged` and :func:`prefill_chunk_paged`.
     """
-    _check_supported(cfg)
+    check_paged_supported(cfg)
     b = tokens.shape[0]
     c = chunk_tokens.shape[1]
     dev = tokens.device

@@ -60,6 +60,9 @@ _QUANT_AXES_DENSE = {
     "w_up": 1,
     "w_down": 1,
 }
+# MoE expert stacks [L, E, K, N]: the contraction axis is 2. The router
+# [L, D, E] stays unquantized, as norms and the embedding do.
+_QUANT_AXES_MOE = {"w_gate": 2, "w_up": 2, "w_down": 2}
 
 
 @dataclass
@@ -78,7 +81,8 @@ class QuantizedTensor:
         return self.q.ndim
 
     def layer(self, i: int) -> "QuantizedTensor":
-        """Layer ``i`` of a stacked [L, K, N] weight, as views."""
+        """Layer ``i`` of a stacked [L, K, N] (or MoE [L, E, K, N])
+        weight, as views."""
         return QuantizedTensor(q=self.q[i], scale=self.scale[i])
 
     def to(self, device) -> "QuantizedTensor":
@@ -124,7 +128,8 @@ class Quantized4Tensor:
         return self.q.ndim
 
     def layer(self, i: int) -> "Quantized4Tensor":
-        """Layer ``i`` of a stacked [L, K/2, N] weight, as views."""
+        """Layer ``i`` of a stacked [L, K/2, N] (or MoE [L, E, K/2, N])
+        weight, as views."""
         return Quantized4Tensor(q=self.q[i], scale=self.scale[i])
 
     def to(self, device) -> "Quantized4Tensor":
@@ -235,12 +240,22 @@ def matmul(x: torch.Tensor, leaf, out_dtype: torch.dtype | None = None) -> torch
     return x @ w
 
 
+def quant_axis(name: str, ndim: int) -> int | None:
+    """The contraction axis of block leaf ``name`` of rank ``ndim`` in
+    the stacked layout, or None for a leaf that stays unquantized."""
+    if name in _QUANT_AXES_MOE and ndim == 4:
+        return _QUANT_AXES_MOE[name]
+    return _QUANT_AXES_DENSE.get(name)
+
+
 def quantize_params(
     params: dict, *, quantize_lm_head: bool = True, bits: int = 8
 ) -> dict:
     """Quantize the large matmul weights of an ``init_params`` tree.
 
-    Norms, biases and the embedding gather table keep their type.
+    Norms, biases, the MoE router and the embedding gather table keep
+    their type. Dense and MoE block layouts both work (an MoE expert
+    stack carries an extra expert axis; its contraction axis is 2).
     ``bits``: 8 (int8, amax / 127) or 4 (packed int4, amax / 7). Leaves
     that are already quantized stay as they are.
     """
@@ -250,8 +265,9 @@ def quantize_params(
     out = dict(params)
     blocks = dict(params["blocks"])
     for name, w in blocks.items():
-        if name in _QUANT_AXES_DENSE and not isinstance(w, QUANT_LEAVES):
-            blocks[name] = qfn(w, _QUANT_AXES_DENSE[name])
+        axis = quant_axis(name, w.ndim)
+        if axis is not None and not isinstance(w, QUANT_LEAVES):
+            blocks[name] = qfn(w, axis)
     out["blocks"] = blocks
     if (
         quantize_lm_head

@@ -23,7 +23,10 @@ replicates its size-1 axis (the size-1 rule). Packed int4 leaves cannot
 be split over ``model`` yet: the packed layout holds logical rows r and
 r + K/2 in one byte (``ops/quant.py``), so a row split of ``wo`` or
 ``w_down`` is not a split of the packed rows and needs a repack per
-shard, a later slice's work. MoE trees raise, as MoE does in the port.
+shard, a later slice's work. MoE trees have their specs (the JAX
+package's, experts over ``expert``) for capacity planning
+(:func:`sharded_param_bytes`); :func:`shard_params` refuses them: MoE on a
+mesh is a later slice's work.
 """
 
 from __future__ import annotations
@@ -63,12 +66,11 @@ _MOE_RULES: dict[str, tuple] = {
 def _rule(name: str, shape) -> tuple:
     ndim = len(shape)
     if name in _MOE_RULES and ndim == len(_MOE_RULES[name]):
-        raise NotImplementedError(
-            f"param {name!r}: MoE trees are not ported to PyTorch yet"
-        )
-    if name not in _DENSE_RULES:
+        spec = _MOE_RULES[name]
+    elif name in _DENSE_RULES:
+        spec = _DENSE_RULES[name]
+    else:
         raise ValueError(f"no sharding rule for param {name!r}")
-    spec = _DENSE_RULES[name]
     if ndim != len(spec):
         raise ValueError(f"param {name!r} rank {ndim} != rule rank {len(spec)}")
     # Size-1 axes replicate: int8 scale tensors (ops/quant.py) keep
@@ -124,6 +126,8 @@ def shard_params(params, mesh):
     ``model`` > 1, and on MoE trees."""
     shape = mesh.shape
     _refuse_int4(params, shape)
+    if "router" in params["blocks"]:
+        raise NotImplementedError("MoE trees on a mesh are not ported to PyTorch yet")
     coords = mesh.coords
 
     def cut(name, leaf):

@@ -98,7 +98,7 @@ from llm_consensus_tpu_torch.models.paged_cache import (
 )
 from llm_consensus_tpu_torch.models.paged_cache import DecodeGroupArrays
 from llm_consensus_tpu_torch.models.transformer import (
-    _check_supported,
+    check_paged_supported,
     check_mesh_shardable,
     decode_step_paged,
     fused_step_paged,
@@ -455,7 +455,7 @@ def serve_worker(cfg: ModelConfig, params: dict, config: ContinuousConfig, mesh)
         raise ValueError("rank 0 runs the ContinuousBatcher, not serve_worker")
     c = config or ContinuousConfig()
     _check_unported(c, None, None, None)
-    _check_supported(cfg)
+    check_paged_supported(cfg)
     check_mesh_shardable(cfg, mesh, c.max_slots, c.n_pages)
     if mesh.device.type == "cuda":
         torch.cuda.set_device(mesh.device)
@@ -500,7 +500,7 @@ class ContinuousBatcher:
     ):
         c = config or ContinuousConfig()
         _check_unported(c, draft, host_store, controller)
-        _check_supported(cfg)
+        check_paged_supported(cfg)
         self.cfg = cfg
         self.config = c
         self.tokenizer = tokenizer or ByteTokenizer()

@@ -6,6 +6,12 @@ at engine init, int8 KV cache; K6 / K10 carry the projections).
 
     python3 scripts/torch_decode_profile.py [--n 64] [--new-tokens 32] [--int8 | --int4]
     python3 scripts/torch_decode_profile.py --serve [--low-load] [--int8 | --int4]
+    python3 scripts/torch_decode_profile.py --model mixtral-8x7b --int8 --n 8 --new-tokens 8
+
+``--model mixtral-8x7b`` (with ``--int8``: its bf16 weights do not fit one
+card) profiles the same fan-out on mixtral-8x7b, int8 weights drawn on
+the card a matrix at a time (``init_params_quantized``) and the int8 KV
+cache, the engine of ``chip_smoke.py``'s phase 4m.
 
 ``--serve`` profiles the serving path instead: ``chip_smoke.py``'s
 32-request burst (``chip_smoke.serving_burst``, another seed each run)
@@ -68,7 +74,10 @@ def main() -> int:
                     help="the serving burst through the continuous batcher")
     ap.add_argument("--low-load", action="store_true",
                     help="with --serve: one request at a time among idle slots")
+    ap.add_argument("--model", choices=("llama-1b", "mixtral-8x7b"), default="llama-1b")
     args = ap.parse_args()
+    if args.model == "mixtral-8x7b" and (args.serve or not args.int8):
+        ap.error("--model mixtral-8x7b profiles the engine's fan-out on int8 weights (--int8)")
 
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -113,8 +122,17 @@ def main() -> int:
                    [batcher.submit(p, **kw) for p, kw in burst]]
             torch.cuda.synchronize()
             return time.perf_counter() - t0, out
+    elif args.model == "mixtral-8x7b":
+        from llm_consensus_tpu_torch.engine.engine import EngineConfig, InferenceEngine
+        from llm_consensus_tpu_torch.models.transformer import init_params_quantized
+
+        cfg = get_config(args.model)
+        engine = InferenceEngine(
+            cfg, init_params_quantized(cfg, 0, bits=8, device="cuda"),
+            engine_config=EngineConfig(max_new_tokens=args.new_tokens, **quant))
     else:
         engine = build_engine(torch, get_config("llama-1b"), args.new_tokens, **quant)
+    if not args.serve:
         prompts = [SC_PROMPT] * args.n
         temps = [0.7] * args.n
 
@@ -149,6 +167,7 @@ def main() -> int:
             serve["idle_slot_length_max"] = idle_len
     print(json.dumps({
         "card": torch.cuda.get_device_name(0),
+        "model": args.model,
         "path": ("serve " if args.serve else "") + ("low load " if args.low_load else "")
         + weights,
         "n": len(out) if args.serve else args.n,

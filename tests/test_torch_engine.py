@@ -154,12 +154,18 @@ def test_single_token_stop_ends_rows_and_trims_like_jax(engines):
 
 
 def test_multi_token_stops_and_quant_are_not_ported(engines):
-    """Multi-token stops are not ported yet and raise; int8 and int4
-    weights are ported (tests/test_torch_quant.py, tests/test_torch_int4.py):
-    quant="int4" packs the weights at init."""
-    _, teng = engines
-    with pytest.raises(NotImplementedError):
-        teng.generate_texts(["hi"], stop=["\n\n"])
+    """Multi-token stops are ported: they end rows early and trim as the
+    JAX package's engine does (more cases in
+    tests/test_torch_engine_paths.py); int8 and int4 weights are ported
+    (tests/test_torch_quant.py, tests/test_torch_int4.py): quant="int4"
+    packs the weights at init."""
+    jeng, teng = engines
+    base = teng.generate_texts(PROMPTS, temperatures=[0.0] * 4)
+    stop = ["\n\n", base[0].text[2:4]]
+    ref = jeng.generate_texts(PROMPTS, temperatures=[0.0] * 4, stop=stop)
+    got = teng.generate_texts(PROMPTS, temperatures=[0.0] * 4, stop=stop)
+    assert [(r.text, r.num_tokens, r.token_ids) for r in got] == [
+        (r.text, r.num_tokens, r.token_ids) for r in ref], ascii([r.text for r in got])
     eng4 = InferenceEngine(teng.cfg, teng.params, engine_config=EngineConfig(quant="int4"),
                            device="cpu")
     assert type(eng4.params["blocks"]["wq"]).__name__ == "Quantized4Tensor"
@@ -328,13 +334,16 @@ def test_cli_one_shot_question(capsys):
 
 
 def test_import_loads_neither_jax_nor_the_jax_package():
+    """Every module of the port, found by walking the package (a module
+    that ``__init__`` does not load counts too), imports in a fresh
+    interpreter without loading jax, the JAX package or safetensors."""
     code = (
-        "import sys, llm_consensus_tpu_torch, llm_consensus_tpu_torch.cli, "
-        "llm_consensus_tpu_torch.backends.local, llm_consensus_tpu_torch.consensus, "
-        "llm_consensus_tpu_torch.ops.kernels, llm_consensus_tpu_torch.models; "
-        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
-        "or m == 'llm_consensus_tpu' or m.startswith('llm_consensus_tpu.')]; "
-        "print(bad); sys.exit(1 if bad else 0)"
+        "import importlib, pkgutil, sys, llm_consensus_tpu_torch as p; "
+        "names = [m.name for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.')]; "
+        "[importlib.import_module(n) for n in names]; "
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'llm_consensus_tpu', 'safetensors')]; "
+        "print(len(names), bad); sys.exit(1 if bad or len(names) < 40 else 0)"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True)
     assert out.returncode == 0, out.stdout + out.stderr
